@@ -1,0 +1,413 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one card, phase by phase.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises; the script then exits non-zero and prints no
+result):
+  1. the card (nvidia-smi name and power limit), and the kernels built with
+     nvcc from engine/csrc into build/torch_kernels/;
+  2. the device Philox words/normals vs ops/shocks.py in torch on the card:
+     words equal, normals within 2e-6 relative;
+  3. probe_kernel vs probe_plain on the card (config.json, 16 candidates
+     over 0-480 months, 65,536 paths, one seed so one stream): per-candidate
+     success within 0.3 points, per-path flags mismatching below 3e-3, and
+     the kernel's survivor counts equal to its own flags;
+  4. full_kernel vs simulate_full_plain at W=234, 65,536 paths, with the
+     bounds the JAX suite holds Pallas to (tests/test_pallas_parity.py);
+  5. the main path through RetirementMonteCarloSimulator(device="cuda"):
+     search, final seeds, final run — at config.json's own sizes and at
+     1M search and 1M final paths — with the launch counters checked and
+     the success at the found month >= target - 150/sqrt(n); after each
+     run, the checks of phases 3 and 4 again at that run's shapes (16
+     candidates around the found month at the search's path count, the
+     full kernel at the found month at the final path count), so partial
+     4096-path blocks and padding lanes are held to the plain versions;
+  6. card times at 1M paths x 600 months (bench.py's scenario), CUDA
+     events, warm, min of 5: one 16-candidate probe, the full kernel
+     alone, and the full kernel plus summarize — kernel and plain version.
+
+The line before the last is {"kernels": [...]}, the card's name and power
+limit stand on their own line, and the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PKG = "monte_carlo_retirement_tpu_torch"
+CU_SOURCE = f"{PKG}/engine/csrc/month_loop.cu"
+SEED = 2026
+N_CHECK = 65_536
+PROBE_TOL_PTS = 0.3
+FLAG_MISMATCH = 3e-3
+NORMAL_RTOL = 2e-6
+FIELD_RTOL = 5e-3  # the JAX suite's q999 bound: < 1e-3 of entries beyond it
+PATH_SHARE = 1e-3  # share of paths whose flag / ruin month / NaN may differ
+ONE_MONTH_YEARS = 1.0 / 12.0
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _config(**overrides):
+    from monte_carlo_retirement_tpu_torch.config import Config
+
+    with open(os.path.join(REPO, "config.json"), encoding="utf-8") as fh:
+        raw = json.load(fh)
+    raw["seed"] = SEED
+    raw.update(overrides)
+    return Config(**raw)
+
+
+def _few(bad: int, total: int, share: float = PATH_SHARE) -> bool:
+    """At most ``share`` of ``total``, or a single one at small sizes."""
+    return bad < share * total or bad <= 1
+
+
+def _time_ms(fn, repeats=5):
+    """Warm once, then the min over ``repeats`` CUDA-event-timed calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def phase_build(report):
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import _build
+
+    report["card"] = _card_line()
+    print(f"[1] card: {report['card']} | torch: {torch.cuda.get_device_name(0)}"
+          f" | torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    so = _build.build()
+    _build.load()
+    took = time.perf_counter() - t0
+    print(f"[1] kernels built from {CU_SOURCE} -> {os.path.relpath(so, REPO)} "
+          f"in {took:.1f} s")
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[1] ptxas: {line.strip()}")
+
+
+def phase_normals(report):
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine.cuda_kernel import device_normals
+    from monte_carlo_retirement_tpu_torch.ops.shocks import (
+        bits_to_normal,
+        philox4x32_10,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    n = 1 << 20
+    dev = torch.device("cuda")
+    seed = torch.randint(0, 2**31, (n,), generator=g, device=dev)
+    block = torch.randint(0, 2**32, (n,), generator=g, device=dev)
+    month = torch.randint(1, 1441, (n,), generator=g, device=dev)
+    lane = torch.randint(0, 4096, (n,), generator=g, device=dev)
+    edges = torch.tensor(
+        [[0, 0, 1, 0], [2**31 - 1, 2**32 - 1, 1440, 4095], [SEED, 3, 600, 17]],
+        device=dev,
+    ).t()
+    seed, block, month, lane = (
+        torch.cat([a, e]) for a, e in zip((seed, block, month, lane), edges)
+    )
+    words_d, z_d = device_normals(seed, block, month, lane)
+    words_t = torch.stack(philox4x32_10(month, lane, 0, 0, seed, block))
+    z_t = torch.stack([bits_to_normal(w) for w in words_t[:3]])
+    torch.cuda.synchronize()
+    if not torch.equal(words_d, words_t):
+        bad = int((words_d != words_t).sum())
+        raise AssertionError(f"device Philox words differ from torch in {bad} places")
+    rel = ((z_d - z_t).abs() / z_t.abs().clamp_min(1e-30)).max().item()
+    exact = float((z_d == z_t).float().mean())
+    print(f"[2] Philox words equal on {words_d.numel():,} words; normals max rel "
+          f"err {rel:.3e} (bound {NORMAL_RTOL:g}), bit-equal share {exact:.6f}")
+    if not rel <= NORMAL_RTOL:
+        raise AssertionError(f"normals differ by {rel:.3e} relative")
+    report["normals_max_rel"] = rel
+
+
+def check_probe(report, tag, eng, months, n):
+    """probe_kernel vs probe_plain on one parameter block, ``n`` paths."""
+    import numpy as np
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+
+    packed = eng._pack(months, "search")
+    out_k = ck.probe(packed, eng.statics, eng.retirement_years, n)
+    out_p = ck.probe_plain(packed, eng.statics, eng.retirement_years, n)
+    torch.cuda.synchronize()
+    flags_k, flags_p = out_k.success > 0.5, out_p.success > 0.5
+    # The ballot + atomic count must see exactly the n real paths.
+    if not torch.equal(out_k.counts, flags_k.sum(dim=1)):
+        raise AssertionError(
+            f"[{tag}] probe_kernel counts {out_k.counts.tolist()} differ from "
+            f"its own flags {flags_k.sum(dim=1).tolist()}")
+    pk = out_k.counts.double().cpu().numpy() / n * 100
+    pp = out_p.counts.double().cpu().numpy() / n * 100
+    err = float(np.abs(pk - pp).max())
+    tol = max(PROBE_TOL_PTS, 100.0 / n)  # one path's flag at small n
+    flags = float((flags_k != flags_p).double().mean())
+    diff = (out_k.final_balance - out_p.final_balance).abs()
+    rel = diff / out_p.final_balance.abs().clamp_min(1.0)
+    dusty = float(((rel > FIELD_RTOL) & (diff > 5.0)).double().mean())
+    print(f"[{tag}] probe kernel vs plain, {n:,} paths, months {months}:")
+    print(f"[{tag}]   kernel success % {np.round(pk, 3).tolist()}")
+    print(f"[{tag}]   plain  success % {np.round(pp, 3).tolist()}")
+    print(f"[{tag}]   max |d success| {err:.4f} pts (bound {tol:.3f}); flag "
+          f"mismatch {flags:.2e} (bound {FLAG_MISMATCH:g}); finals off >0.5% "
+          f"and >$5: {dusty:.2e} (bound 1e-3)")
+    if not (err <= tol and flags < FLAG_MISMATCH and dusty <= 1e-3):
+        raise AssertionError(f"[{tag}] probe kernel disagrees with its plain version")
+    report["probe_err"] = max(report.get("probe_err", 0.0), err)
+
+
+def check_full(report, tag, eng, W, n):
+    """full_kernel vs simulate_full_plain at working months ``W``, ``n``
+    paths, with the series as wide as Engine.run makes them."""
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+
+    L = 1 + eng._t_scan(W) // 12
+    R = eng.retirement_years
+    packed = eng._pack(W, "final")
+    k = ck.simulate_full(packed, eng.statics, R, n, L)
+    p = ck.simulate_full_plain(packed, eng.statics, R, n, L)
+    torch.cuda.synchronize()
+
+    def beyond(name):
+        a, b = k[name], p[name]
+        rel = (a - b).abs() / b.abs().clamp_min(1.0)
+        return int((rel > FIELD_RTOL).sum()), rel.numel(), float(rel.max())
+
+    flips = int(((k["success"] > 0.5) != (p["success"] > 0.5)).sum())
+    fields = {name: beyond(name) for name in (
+        "final_balance", "start_balance", "first_year_gross",
+        "first_year_real_gross", "inflation_at_retirement", "trajectory",
+        "price_levels")}
+    ytr_k, ytr_p = k["years_to_ruin"], p["years_to_ruin"]
+    nan_flips = int((ytr_k.isnan() != ytr_p.isnan()).sum())
+    both = ~ytr_k.isnan() & ~ytr_p.isnan()
+    ytr_diff = (ytr_k[both] - ytr_p[both]).abs()
+    ytr_err = float(ytr_diff.max()) if both.any() else 0.0
+    # A ruin month may move by one at the f32 funding-failure boundary,
+    # on few paths, and by no more than that month.
+    ytr_moved = int((ytr_diff > 1e-5).sum())
+    wr_k, wr_p = k["withdrawal_rates"], p["withdrawal_rates"]
+    wr_nan = int((wr_k.isnan() != wr_p.isnan()).sum())
+    ok = ~wr_k.isnan() & ~wr_p.isnan()
+    wr_abs = (wr_k[ok] - wr_p[ok]).abs()
+    wr_bad = int((wr_abs > 1e-4 + FIELD_RTOL * wr_p[ok].abs()).sum())
+    wr_err = float(wr_abs.max()) if ok.any() else 0.0
+    print(f"[{tag}] full kernel vs plain at W={W}, {n:,} paths, L={L}, R={R}: "
+          f"success flags differing {flips}")
+    print(f"[{tag}]   entries beyond rel err {FIELD_RTOL:g} (bound < 1e-3 of "
+          "them, i.e. q999 below it) / max rel err: "
+          + ", ".join(f"{nm} {b}/{t} {m:.2e}" for nm, (b, t, m) in fields.items()))
+    print(f"[{tag}]   years_to_ruin NaN flips {nan_flips}, ruin months moved "
+          f"{ytr_moved}, max abs err {ytr_err:.4e} y (bound 1/12 y + 1e-5)")
+    print(f"[{tag}]   WR NaN flips {wr_nan}, max abs err {wr_err:.3e} pts, "
+          f"{wr_bad} entries beyond rtol {FIELD_RTOL:g}")
+    if not (_few(flips, n)
+            and all(_few(b, t) for b, t, _ in fields.values())
+            and _few(nan_flips, n) and _few(ytr_moved, n)
+            and ytr_err <= ONE_MONTH_YEARS + 1e-5
+            and _few(wr_nan, wr_k.numel()) and wr_bad == 0):
+        raise AssertionError(f"[{tag}] full kernel disagrees with its plain version")
+    report["full_err"] = max(report.get("full_err", 0.0), wr_err)
+
+
+def phase_probe(report):
+    import numpy as np
+    from monte_carlo_retirement_tpu_torch.engine.runner import Engine
+
+    months = [int(m) for m in np.linspace(0, 480, 16).round()]
+    check_probe(report, "3", Engine(_config(), device="cuda"), months, N_CHECK)
+
+
+def phase_full(report):
+    from monte_carlo_retirement_tpu_torch.engine.runner import Engine
+
+    check_full(report, "4", Engine(_config(), device="cuda"), 234, N_CHECK)
+
+
+def phase_main_path(report):
+    import numpy as np
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine.simulator import (
+        RetirementMonteCarloSimulator,
+        median_first_year_withdrawal_rate,
+    )
+    from monte_carlo_retirement_tpu_torch.timing import expected_trajectory_length
+
+    launches = {name: 0 for name in ck.LAUNCHES}
+    for label, n_search, n_final in (("a", None, None),
+                                     ("b", 1_000_000, 1_000_000)):
+        over = {}
+        if n_search:
+            over = dict(num_simulations_search=n_search,
+                        num_simulations_main=n_final)
+        cfg = _config(**over)
+        ck.reset_counts()
+        t0 = time.perf_counter()
+        sim = RetirementMonteCarloSimulator(cfg, device="cuda")
+        months, prob, curve = sim.find_minimum_working_months(verbose=False)
+        t_search = time.perf_counter() - t0
+        if months < 0:
+            raise AssertionError(f"({label}) search found no month (best {prob})")
+        sim.use_final_seeds()
+        t1 = time.perf_counter()
+        res = sim.run_monte_carlo_simulations(months, cfg.num_simulations_main)
+        t_final = time.perf_counter() - t1
+        ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+        if not all(ran.values()):
+            raise AssertionError(f"({label}) a kernel was not launched: {ran}")
+        if any(plain.values()):
+            raise AssertionError(f"({label}) plain versions ran: {plain}")
+        for name in launches:
+            launches[name] += ran[name]
+        summary_df, traj_df, samples, wr_df, real_df, samples_real, counts = res
+        success = sim._success_probability(summary_df)
+        swr = median_first_year_withdrawal_rate(summary_df)
+        n = cfg.num_simulations_main
+        margin = 150.0 / math.sqrt(n)
+        L = expected_trajectory_length(months, cfg.retirement_years)
+        print(f"[5{label}] search {cfg.num_simulations_search:,} paths -> "
+              f"{months} months ({len(curve)} candidates, {prob:.2f}%) in "
+              f"{t_search:.2f} s; final {n:,} paths: success {success:.3f}%, SWR "
+              f"{swr:.3f}%, in {t_final:.2f} s (wall, incl. host copies); "
+              f"launches {ran}, plain calls {plain}")
+        if success < cfg.target_probability - margin:
+            raise AssertionError(
+                f"({label}) success {success:.3f}% below target "
+                f"{cfg.target_probability} - {margin:.3f}")
+        if len(summary_df) != n or traj_df.shape != (L, 7) or wr_df.shape != (
+                cfg.retirement_years, 5) or len(samples) != 5 or len(counts) != (
+                cfg.retirement_years):
+            raise AssertionError(f"({label}) result shapes are wrong")
+        if not (np.isfinite(traj_df.to_numpy()).all()
+                and np.isfinite(real_df.to_numpy()).all()
+                and np.isfinite(summary_df["Final Balance"]).all()
+                and np.isfinite(swr)):
+            raise AssertionError(f"({label}) non-finite results")
+        # The kernels against their plain versions at this run's shapes
+        # (after the counts were read: these launches are not counted).
+        lo = max(0, months - 8)
+        check_probe(report, f"5{label}", sim.engine, list(range(lo, lo + 16)),
+                    cfg.num_simulations_search)
+        check_full(report, f"5{label}", sim.engine, months, n)
+    report["launches"] = launches
+    print(f"[5] launches over the two main-path runs: {launches}")
+
+
+def phase_timings(report):
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine.runner import Engine
+    from monte_carlo_retirement_tpu_torch.ops.stats import summarize
+
+    n = 1_000_000
+    eng = Engine(_config(retirement_years=50, initial_balance=1_500_000.0,
+                         monthly_expenses=4_000.0), device="cuda")
+    R = eng.retirement_years
+    L = 1 + eng._t_scan(0) // 12
+    sample_idx = torch.arange(5, device="cuda")
+    probe_packed = eng._pack(list(range(16)), "search")
+    full_packed = eng._pack(0, "final")
+
+    def full(fn):
+        return lambda: fn(full_packed, eng.statics, R, n, L)
+
+    def full_and_summary(fn):
+        return lambda: summarize(fn(full_packed, eng.statics, R, n, L), sample_idx)
+
+    times = {
+        "probe": _time_ms(lambda: ck.probe(probe_packed, eng.statics, R, n)),
+        "full": _time_ms(full(ck.simulate_full)),
+        "full_summarize": _time_ms(full_and_summary(ck.simulate_full)),
+        "probe_plain": _time_ms(
+            lambda: ck.probe_plain(probe_packed, eng.statics, R, n)),
+        "full_plain": _time_ms(full(ck.simulate_full_plain)),
+        "full_plain_summarize": _time_ms(full_and_summary(ck.simulate_full_plain)),
+    }
+    succ = ck.probe(probe_packed, eng.statics, R, n).counts[0].item() / n * 100
+    card = report["card"]
+    print(f"[6] 1M paths x 600 months, W=0 (probe: 16 candidates, months 0-15), "
+          f"CUDA events, warm, min of 5, on {card}:")
+    print(f"[6]   probe kernel {times['probe']:.3f} ms | plain "
+          f"{times['probe_plain']:.3f} ms")
+    print(f"[6]   full kernel {times['full']:.3f} ms | plain "
+          f"{times['full_plain']:.3f} ms")
+    print(f"[6]   full kernel + summarize {times['full_summarize']:.3f} ms | "
+          f"plain + summarize {times['full_plain_summarize']:.3f} ms")
+    print(f"[6]   success at W=0: {succ:.3f}%")
+    report["times"] = times
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA "
+              "card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import importlib
+
+    importlib.import_module(PKG)  # fails outside a checkout of the repo
+
+    report = {}
+    for phase in (phase_build, phase_normals, phase_probe, phase_full,
+                  phase_main_path, phase_timings):
+        phase(report)
+    if "jax" in sys.modules:
+        raise AssertionError("the port imported jax")
+
+    times, launches = report["times"], report["launches"]
+    kernels = [
+        {"name": "probe_kernel", "route": "cuda", "source": CU_SOURCE,
+         "replaces": "monte_carlo_retirement_tpu/engine/pallas_kernel.py:1325",
+         "launches": launches["probe"], "max_abs_err": report["probe_err"],
+         "ms": times["probe"], "plain_ms": times["probe_plain"]},
+        {"name": "full_kernel", "route": "cuda", "source": CU_SOURCE,
+         "replaces": "monte_carlo_retirement_tpu/engine/pallas_kernel.py:1405",
+         "launches": launches["full"], "max_abs_err": report["full_err"],
+         "ms": times["full"], "plain_ms": times["full_plain"]},
+    ]
+    print("max_abs_err: probe = largest |success % difference| over every "
+          "probe check; full = largest |withdrawal-rate difference| (points) "
+          "over every full check; ms = the kernel alone (phase 6)")
+    print(json.dumps({"kernels": kernels}))
+    print(report["card"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,413 @@
+"""The port's kernels: wrappers, plain versions and their parameter block.
+
+Counterpart of the JAX package's ``engine/pallas_kernel.py``. Two kernels
+carry the main path, both forms of one month loop (``csrc/month_loop.cu``):
+
+  * :func:`probe` replaces ``pallas_probe`` (``pallas_kernel.py:1325``):
+    candidate working-month counts x paths, shocks shared across
+    candidates -> per-path alive flags and final balances plus the exact
+    success count per candidate;
+  * :func:`simulate_full` replaces ``pallas_simulate_full``
+    (``pallas_kernel.py:1405``): the tracked loop -> seven per-path vectors
+    and the yearly trajectory, price-level and withdrawal-rate series.
+
+Beside each wrapper is its plain PyTorch version (:func:`probe_plain`,
+:func:`simulate_full_plain`, thin calls into ``engine/kernel.py``). A
+wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel or raises. ``LAUNCHES`` counts kernel
+launches and ``PLAIN_CALLS`` plain calls, so a run can show which path it
+took.
+
+Compile-time structure is ``Statics`` (same fields and derivation as
+``pallas_kernel.Statics``). This slice implements the Statics of
+``config.json``/``jorge.json``: either tax system per asset without annual
+mark-to-market bills, and 0-4 CPI-indexed uncapped income streams; every
+other Statics raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..constants import MONTHS_PER_YEAR
+from ..models.retirement import SimParams, prune_streams
+
+MAX_STREAMS = 4
+
+# Kernel launches / plain-version calls since the last reset.
+LAUNCHES: Dict[str, int] = {"probe": 0, "full": 0}
+PLAIN_CALLS: Dict[str, int] = {"probe": 0, "full": 0}
+
+
+def reset_counts() -> None:
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for key in d:
+            d[key] = 0
+
+
+class F:
+    """fparams layout (float, = pallas_kernel.py:97-108)."""
+
+    (
+        MU1_M, S1_M, MUI_M, SI_M, MUP_M, SP_M,
+        RHO, RHO_C,
+        ALLOC1, INIT_BAL, CONTRIB0, LOG1P_GROWTH, EXPENSES,
+        R_REAL1, R_ANN1,
+        R_REAL2, R_ANN2,
+        ALLOC1_F,
+        GR_UP, GR_LO, GR_ADJ, GR_FLOOR, GR_CAP,
+        JP, JMU, JSIG, JBETA, JC1, JC2,
+        MORT_G0, MORT_B12, MORT_CAP,
+        NUM,
+    ) = range(33)
+
+
+# iparams row layout (int32): working months, last month, stream seed and
+# the global path-block offset of the dispatch's first path.
+I_W, I_T_END, I_SEED, I_BLOCK_OFF, NUM_IPARAMS = range(5)
+
+
+class Statics(NamedTuple):
+    """Compile-time structure of a scenario (``pallas_kernel.Statics``)."""
+
+    use_real1: bool
+    use_real2: bool
+    bill1: bool
+    bill2: bool
+    stream_indexed: Tuple[bool, ...]
+    stream_capped: Tuple[bool, ...]
+    antithetic: bool = False
+    glide: bool = False
+    guardrails: bool = False
+    jumps: bool = False
+    mortality: bool = False
+
+
+def statics_from_config(config) -> Statics:
+    """Kernel Statics from a validated Config; streams pruned by the same
+    helper that builds the SimParams stream tensors."""
+    streams = prune_streams(config)
+    use1 = bool(config.inv1_use_realized_gains_tax_system)
+    use2 = bool(config.inv2_use_realized_gains_tax_system)
+    return Statics(
+        use_real1=use1,
+        use_real2=use2,
+        bill1=(not use1) and config.inv1_annual_tax_on_gains_rate > 0.0,
+        bill2=(not use2) and config.inv2_annual_tax_on_gains_rate > 0.0,
+        stream_indexed=tuple(bool(s.inflation_indexed) for s in streams),
+        stream_capped=tuple(s.duration_years is not None for s in streams),
+        antithetic=bool(getattr(config, "antithetic", False)),
+        glide=getattr(config, "allocation_inv1_final_pct", None) is not None,
+        guardrails=getattr(config, "spending_guardrails", None) is not None,
+        jumps=getattr(config, "market_crashes", None) is not None,
+        mortality=getattr(config, "longevity", None) is not None,
+    )
+
+
+def check_slice(statics: Statics) -> None:
+    """Raise NotImplementedError for Statics this port does not run yet."""
+    missing = []
+    if statics.bill1 or statics.bill2:
+        missing.append("annual mark-to-market tax bills")
+    if not all(statics.stream_indexed):
+        missing.append("fixed-nominal income streams")
+    if any(statics.stream_capped):
+        missing.append("duration-capped income streams")
+    if len(statics.stream_indexed) > MAX_STREAMS:
+        missing.append(f"more than {MAX_STREAMS} income streams")
+    for flag in ("antithetic", "glide", "guardrails", "jumps", "mortality"):
+        if getattr(statics, flag):
+            missing.append(flag)
+    if missing:
+        raise NotImplementedError(
+            "the PyTorch/CUDA port does not run "
+            + ", ".join(missing)
+            + " yet (ROADMAP.md item A8: extensions on both kernels)"
+        )
+
+
+@dataclasses.dataclass
+class Packed:
+    """The kernels' argument block.
+
+    ``fp``: (F.NUM + 5*S,) floats — the scenario parameters, then the stream
+    table rows [amount, months_from_t0, duration (capped at 3e7), indexed,
+    tax], each of length S. ``ip``: (K, 4) int32 rows [W, t_end, seed,
+    block_offset], one per candidate. Both live on the device they run on.
+    """
+
+    fp: torch.Tensor
+    ip: torch.Tensor
+    n_streams: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.fp.device
+
+
+def pack_params(
+    params: SimParams,
+    seed: int,
+    working_months,
+    retirement_years: int,
+    block_offset: int = 0,
+    dtype=torch.float32,
+    device=None,
+) -> Packed:
+    """``pallas_kernel._pack_params`` plus ``_stream_inputs``, in ``dtype``
+    (every derived value computed in that dtype, like the JAX packing)."""
+    device = params.initial_balance.device if device is None else device
+    require_device(device)
+    p = lambda t: t.detach().to(device=device, dtype=dtype)
+    sq = math.sqrt(MONTHS_PER_YEAR)
+    vals = [
+        p(params.mu1) / MONTHS_PER_YEAR,
+        p(params.sigma1) / sq,
+        p(params.mu_inf) / MONTHS_PER_YEAR,
+        p(params.sigma_inf) / sq,
+        p(params.mu_prem) / MONTHS_PER_YEAR,
+        p(params.sigma_prem) / sq,
+        p(params.rho),
+        torch.sqrt(torch.clamp(1.0 - p(params.rho) ** 2, min=0.0)),
+        p(params.alloc1),
+        p(params.initial_balance),
+        p(params.monthly_contribution),
+        torch.log1p(p(params.contribution_growth)),
+        p(params.monthly_expenses),
+        p(params.real_tax1),
+        p(params.ann_tax1),
+        p(params.real_tax2),
+        p(params.ann_tax2),
+        p(params.alloc1_final),
+        p(params.gr_upper),
+        p(params.gr_lower),
+        p(params.gr_adjust),
+        p(params.gr_floor),
+        p(params.gr_cap),
+        p(params.jump_p),
+        p(params.jump_mu),
+        p(params.jump_sigma),
+        p(params.jump_beta),
+        p(params.jump_comp1),
+        p(params.jump_comp2),
+        p(params.mort_g0),
+        p(params.mort_b12),
+        p(params.mort_cap),
+    ]
+    streams = [
+        p(params.stream_amount),
+        p(params.stream_months_from_t0),
+        torch.clamp(p(params.stream_duration_months), max=3.0e7),
+        p(params.stream_indexed),
+        p(params.stream_tax),
+    ]
+    fp = torch.cat([torch.stack(vals)] + streams)
+    w = torch.as_tensor(working_months, dtype=torch.int64).reshape(-1)
+    t_end = w + MONTHS_PER_YEAR * int(retirement_years)
+    ip = torch.stack(
+        [
+            w,
+            t_end,
+            torch.full_like(w, int(seed)),
+            torch.full_like(w, int(block_offset)),
+        ],
+        dim=1,
+    ).to(device=device, dtype=torch.int32)
+    return Packed(fp=fp.contiguous(), ip=ip.contiguous(),
+                  n_streams=params.n_streams)
+
+
+def unpack_streams(packed: Packed) -> List[List[float]]:
+    """The stream table as five Python lists (amount, from_t0, duration,
+    indexed, tax)."""
+    S = packed.n_streams
+    tail = packed.fp[F.NUM:].tolist()
+    return [tail[i * S:(i + 1) * S] for i in range(5)]
+
+
+# ---------------------------------------------------------------------------
+# device routing
+# ---------------------------------------------------------------------------
+def require_device(device) -> None:
+    """Raise unless ``device`` is the CPU or a CUDA device that exists."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch.cuda.is_available() is "
+            "False: no CUDA card here (pass device='cpu' for the plain "
+            "PyTorch path)"
+        )
+
+
+def _runs_plain(packed: Packed, statics: Statics, what: str) -> bool:
+    """True for CPU tensors; for CUDA tensors checks the card and the
+    kernel's input contract (the pointers it is handed), then False."""
+    require_device(packed.device)
+    if packed.device.type == "cpu":
+        return True
+    fp, ip, S = packed.fp, packed.ip, packed.n_streams
+    if fp.dtype != torch.float32 or ip.dtype != torch.int32:
+        raise TypeError(
+            f"the {what} kernel takes float32 params and int32 iparams, got "
+            f"{fp.dtype} / {ip.dtype}"
+        )
+    if (fp.device != ip.device or not fp.is_contiguous()
+            or not ip.is_contiguous() or fp.shape != (F.NUM + 5 * S,)
+            or ip.ndim != 2 or ip.shape[1] != NUM_IPARAMS
+            or len(statics.stream_indexed) != S):
+        raise ValueError(
+            f"malformed parameter block for the {what} kernel: fp "
+            f"{tuple(fp.shape)} on {fp.device}, ip {tuple(ip.shape)} on "
+            f"{ip.device}, {S} streams, statics for "
+            f"{len(statics.stream_indexed)}"
+        )
+    return False
+
+
+def _stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+class ProbeOut(NamedTuple):
+    counts: torch.Tensor  # (K,) int64 — surviving paths per candidate
+    success: torch.Tensor  # (K, n) float 0/1 alive flags
+    final_balance: torch.Tensor  # (K, n)
+
+
+# ---------------------------------------------------------------------------
+# probe: candidate-parallel success for the search
+# ---------------------------------------------------------------------------
+def probe(packed: Packed, statics: Statics, retirement_years: int,
+          n_paths: int) -> ProbeOut:
+    """Per-candidate survivors over exactly ``n_paths`` paths (kernel on a
+    CUDA tensor, plain version on a CPU tensor)."""
+    check_slice(statics)
+    if _runs_plain(packed, statics, "probe"):
+        return probe_plain(packed, statics, retirement_years, n_paths)
+    from . import _build
+
+    lib = _build.load()
+    dev = packed.device
+    K, n = packed.ip.shape[0], int(n_paths)
+    success = torch.empty((K, n), dtype=torch.float32, device=dev)
+    final = torch.empty((K, n), dtype=torch.float32, device=dev)
+    counts = torch.zeros(K, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.mcrt_probe(
+            packed.fp.data_ptr(), packed.ip.data_ptr(), K, n,
+            int(retirement_years), int(statics.use_real1),
+            int(statics.use_real2), packed.n_streams, success.data_ptr(),
+            final.data_ptr(), counts.data_ptr(), _stream_ptr(dev),
+        )
+    _build.check(lib, rc, "probe_kernel launch")
+    LAUNCHES["probe"] += 1
+    return ProbeOut(counts.to(torch.int64), success, final)
+
+
+def probe_plain(packed: Packed, statics: Statics, retirement_years: int,
+                n_paths: int, shocks: Optional[torch.Tensor] = None) -> ProbeOut:
+    """Plain PyTorch version of :func:`probe` (optionally on injected
+    shocks, (T, 3, n))."""
+    from .kernel import simulate
+
+    check_slice(statics)
+    PLAIN_CALLS["probe"] += 1
+    out = simulate(packed, statics, retirement_years, n_paths, shocks=shocks)
+    counts = (out["success"] > 0.5).sum(dim=1)
+    return ProbeOut(counts, out["success"], out["final_balance"])
+
+
+# ---------------------------------------------------------------------------
+# full statistics: tracked per-path vectors and yearly series
+# ---------------------------------------------------------------------------
+VECTOR_FIELDS = (
+    "success", "final_balance", "start_balance", "years_to_ruin",
+    "first_year_gross", "first_year_real_gross", "inflation_at_retirement",
+)
+
+
+def simulate_full(packed: Packed, statics: Statics, retirement_years: int,
+                  n_paths: int, traj_len: int) -> Dict[str, torch.Tensor]:
+    """Per-path vectors (n,) and series ``trajectory``/``price_levels``
+    (n, traj_len), ``withdrawal_rates`` (n, R) — the JAX public layout, as
+    transposed views of the kernel's (L, n) / (R, n) buffers."""
+    check_slice(statics)
+    if packed.ip.shape[0] != 1:
+        raise ValueError("simulate_full takes one working_months value")
+    if _runs_plain(packed, statics, "full"):
+        return simulate_full_plain(
+            packed, statics, retirement_years, n_paths, traj_len
+        )
+    from . import _build
+
+    lib = _build.load()
+    dev = packed.device
+    n, R, L = int(n_paths), int(retirement_years), int(traj_len)
+    vecs = torch.empty((len(VECTOR_FIELDS), n), dtype=torch.float32, device=dev)
+    traj = torch.empty((L, n), dtype=torch.float32, device=dev)
+    price = torch.empty((L, n), dtype=torch.float32, device=dev)
+    wr = torch.empty((R, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.mcrt_full(
+            packed.fp.data_ptr(), packed.ip.data_ptr(), n, R, L,
+            int(statics.use_real1), int(statics.use_real2), packed.n_streams,
+            vecs.data_ptr(), traj.data_ptr(), price.data_ptr(),
+            wr.data_ptr(), _stream_ptr(dev),
+        )
+    _build.check(lib, rc, "full_kernel launch")
+    LAUNCHES["full"] += 1
+    out = dict(zip(VECTOR_FIELDS, vecs.unbind(0)))
+    out.update(trajectory=traj.t(), price_levels=price.t(),
+               withdrawal_rates=wr.t())
+    return out
+
+
+def simulate_full_plain(packed: Packed, statics: Statics,
+                        retirement_years: int, n_paths: int, traj_len: int,
+                        shocks: Optional[torch.Tensor] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of :func:`simulate_full`."""
+    from .kernel import simulate
+
+    check_slice(statics)
+    PLAIN_CALLS["full"] += 1
+    return simulate(packed, statics, retirement_years, n_paths,
+                    traj_len=traj_len, shocks=shocks)
+
+
+# ---------------------------------------------------------------------------
+# the device stream itself (checks only: holds it bit-equal to ops/shocks)
+# ---------------------------------------------------------------------------
+def device_normals(seed: torch.Tensor, block: torch.Tensor,
+                   month: torch.Tensor, lane: torch.Tensor):
+    """Philox words (4, n) int64 and normals (3, n) float32 computed on the
+    card for per-element (seed, block, month, lane), all CUDA tensors."""
+    from . import _build
+
+    dev = lane.device
+    require_device(dev)
+    if dev.type != "cuda" or not all(
+        t.device == dev and t.shape == lane.shape and t.ndim == 1
+        for t in (seed, block, month)
+    ):
+        raise ValueError("device_normals takes four (n,) tensors on one CUDA device")
+    lib = _build.load()
+    inp = torch.stack([seed, block, month, lane]).to(torch.int64)
+    inp = (inp & 0xFFFFFFFF).to(torch.int32).contiguous()  # uint32 bits
+    n = int(inp.shape[1])
+    words = torch.empty((4, n), dtype=torch.int32, device=dev)
+    z = torch.empty((3, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.mcrt_normals(inp.data_ptr(), n, words.data_ptr(),
+                              z.data_ptr(), _stream_ptr(dev))
+    _build.check(lib, rc, "normals_kernel launch")
+    return words.to(torch.int64) & 0xFFFFFFFF, z

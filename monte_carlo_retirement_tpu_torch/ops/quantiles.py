@@ -1,0 +1,69 @@
+"""Exact ``np.percentile`` / ``np.nanpercentile`` over the path axis, in torch.
+
+Same contract as the JAX package's ``ops/quantiles.py`` (lines 1-33): order
+statistics with linear interpolation between the two neighbouring ranks,
+masked entries sort as +inf and are never selected, a column without valid
+entries gives NaN. Built on ``torch.sort`` plus ``gather`` along each
+column (``torch.quantile`` refuses inputs above 16M elements, and a
+1M x 121 trajectory table is 121M). Columns are sorted as rows of the
+transposed table, so an (n, C) view of a contiguous (C, n) series — the
+kernels' layout — sorts without a copy.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+
+def quantiles_percol(
+    x: torch.Tensor,
+    qmat: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``out[c, k] = np.(nan)percentile(x[:, c], qmat[c, k] * 100)``.
+
+    x: (n, C) values, finite where valid. qmat: (C, K) fractions in [0, 1].
+    valid: optional (n, C) mask. Returns (C, K); NaN where a column has no
+    valid entry.
+    """
+    if x.ndim != 2 or qmat.ndim != 2 or qmat.shape[0] != x.shape[1]:
+        raise ValueError(
+            f"expected x (n, C) and qmat (C, K); got {tuple(x.shape)} / "
+            f"{tuple(qmat.shape)}"
+        )
+    xt = x.t()  # (C, n)
+    n = xt.shape[1]
+    if valid is None:
+        n_valid = torch.full((xt.shape[0],), n, dtype=torch.int64,
+                             device=x.device)
+        sorted_x = torch.sort(xt, dim=1).values
+    else:
+        vt = valid.t()
+        n_valid = vt.sum(dim=1)
+        sorted_x = torch.sort(torch.where(vt, xt, torch.inf), dim=1).values
+    qmat = torch.as_tensor(qmat, dtype=x.dtype, device=x.device)
+    last = torch.clamp(n_valid - 1, min=0)[:, None]  # (C, 1)
+    h = qmat * last.to(x.dtype)
+    lo = torch.clamp(torch.floor(h).to(torch.int64), max=n - 1)
+    hi = torch.minimum(lo + 1, last)
+    t = h - lo.to(x.dtype)
+    a = torch.gather(sorted_x, 1, lo)
+    b = torch.gather(sorted_x, 1, hi)
+    # numpy's _lerp: a + (b-a)*t, or b - (b-a)*(1-t) from t >= 0.5 on.
+    diff = b - a
+    out = torch.where(t >= 0.5, b - diff * (1.0 - t), a + diff * t)
+    return torch.where((n_valid > 0)[:, None], out, torch.nan)
+
+
+def exact_quantiles(
+    x: torch.Tensor,
+    qs: Sequence[float],
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``np.percentile(x, qs*100, axis=0)`` (or ``nanpercentile`` through
+    ``valid``) of an (n, C) table. Returns (Q, C)."""
+    q = torch.as_tensor(qs, dtype=x.dtype, device=x.device)
+    qmat = q[None, :].expand(x.shape[1], -1)
+    return quantiles_percol(x, qmat, valid).t()

@@ -1,0 +1,132 @@
+"""The month loop's tax algebra in torch (plain versions of the kernel body).
+
+Operation for operation the JAX Pallas body's helpers — ``profile``
+(``pallas_kernel.py:587-598``), ``rebalance_lite`` (``:600-638``) and the
+capacity-limited withdrawal split pro-rata by net capacity (``:975-1000``) —
+with IEEE division where Pallas used its approximate reciprocal. The
+average-cost-basis invariant makes one per-asset sale profile serve the
+capacity check, the withdrawal and the rebalance: realized tax is exactly
+``gross * eff``. Tested against the JAX package's ``ops/tax.py`` closed forms.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..constants import SMALL_EPSILON
+
+EPS = SMALL_EPSILON
+
+Tensor = torch.Tensor
+
+
+def fail_rtol(dtype) -> float:
+    """Relative slack for funding-failure comparisons: 2e-5 in float32 (the
+    f32 chain carries hundreds of balance ulps of rounding), 0 in float64
+    (bit-comparable to the reference's absolute 1e-6)."""
+    return 2e-5 if dtype == torch.float32 else 0.0
+
+
+def profile(b: Tensor, c: Tensor, use: bool, rate: float):
+    """Sale profile of one asset: (eff, nf, nc) = tax per gross dollar, net
+    per gross dollar and full-liquidation net capacity."""
+    live = b > EPS
+    if not use:
+        return (
+            torch.zeros_like(b),
+            torch.ones_like(b),
+            torch.where(live, b, 0.0),
+        )
+    safe = torch.where(live, b, 1.0)
+    gf = torch.clamp(b - c, min=0.0) / safe
+    eff = gf * rate
+    nf = 1.0 - eff
+    nc = torch.where(live, b * nf, 0.0)
+    return eff, nf, nc
+
+
+def rebalance_lite(b1, c1, b2, c2, eff1, eff2, a1: float, extra_noop=None):
+    """Tax-aware rebalance toward target ``a1`` whose post-tax weights are
+    exact: the over-weight side sells gross x with x = |drift| / (1 -
+    alloc_s * eff_s); the buyer's basis grows by the net purchase only."""
+    total = b1 + b2
+    drift1 = b1 - total * a1
+    adrift = drift1.abs()
+    sell1 = drift1 > 0
+    noop = (total <= EPS) | (adrift <= EPS)
+    if extra_noop is not None:
+        noop = noop | extra_noop
+    bal_s = torch.where(sell1, b1, b2)
+    basis_s = torch.where(sell1, c1, c2)
+    eff_s = torch.where(sell1, eff1, eff2)
+    alloc_s = torch.where(
+        sell1, torch.full_like(total, a1), torch.full_like(total, 1.0 - a1)
+    )
+    denom = torch.clamp(1.0 - alloc_s * eff_s, min=EPS)
+    gross_s = torch.minimum(bal_s, adrift / denom)
+    frac_s = gross_s / torch.where(bal_s > EPS, bal_s, 1.0)
+    net_p = gross_s * (1.0 - eff_s)
+    new_sb = bal_s - gross_s
+    new_sc = basis_s - basis_s * frac_s
+    bal_b = torch.where(sell1, b2, b1) + net_p
+    basis_b = torch.where(sell1, c2, c1) + net_p
+    ob1 = torch.where(sell1, new_sb, bal_b)
+    oc1 = torch.where(sell1, new_sc, basis_b)
+    ob2 = torch.where(sell1, bal_b, new_sb)
+    oc2 = torch.where(sell1, basis_b, new_sc)
+    z1 = ob1 <= EPS
+    z2 = ob2 <= EPS
+    ob1 = torch.where(z1, 0.0, ob1)
+    oc1 = torch.where(z1, 0.0, oc1)
+    ob2 = torch.where(z2, 0.0, ob2)
+    oc2 = torch.where(z2, 0.0, oc2)
+    return (
+        torch.where(noop, b1, ob1),
+        torch.where(noop, c1, oc1),
+        torch.where(noop, b2, ob2),
+        torch.where(noop, c2, oc2),
+    )
+
+
+def monthly_rebalance(b1, c1, b2, c2, a1, use1, r1, use2, r2):
+    eff1, _, _ = profile(b1, c1, use1, r1)
+    eff2, _, _ = profile(b2, c2, use2, r2)
+    return rebalance_lite(b1, c1, b2, c2, eff1, eff2, a1)
+
+
+def withdraw_pro_rata(
+    b1, c1, b2, c2, need, prof1, prof2, wmask
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Capacity-limited withdrawal of net ``need`` split pro-rata by net
+    capacity: ONE sale fraction (need / total capacity, snapped to exactly
+    1 when the need exceeds it) applies to both balances and bases.
+    Returns (b1, c1, b2, c2, gross, net) where gross/net are the gross sold
+    and the net cash delivered (zero where ``wmask`` is off)."""
+    _eff1, nf1, nc1 = prof1
+    _eff2, nf2, nc2 = prof2
+    tnc = nc1 + nc2
+    wmask_f = torch.where(wmask, 1.0, 0.0).to(b1.dtype)
+    # The minimum keeps 0 <= frac <= 1 by construction.
+    frac_w = torch.clamp(
+        torch.where(need >= tnc, 1.0, need / torch.clamp(tnc, min=EPS)),
+        max=1.0,
+    ) * wmask_f
+    keep_w = 1.0 - frac_w
+    ok1 = nc1 > 0
+    ok2 = nc2 > 0
+    gross1 = torch.where(ok1, b1 * frac_w, 0.0)
+    gross2 = torch.where(ok2, b2 * frac_w, 0.0)
+    net = gross1 * nf1 + gross2 * nf2
+    c1 = torch.where(ok1, c1 * keep_w, c1)
+    c2 = torch.where(ok2, c2 * keep_w, c2)
+    b1 = b1 - gross1
+    b2 = b2 - gross2
+    e1 = b1 <= EPS
+    e2 = b2 <= EPS
+    b1 = torch.where(e1, 0.0, b1)
+    c1 = torch.where(e1, 0.0, c1)
+    b2 = torch.where(e2, 0.0, b2)
+    c2 = torch.where(e2, 0.0, c2)
+    return b1, c1, b2, c2, gross1 + gross2, net
