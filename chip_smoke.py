@@ -25,16 +25,36 @@ result):
      4096-path blocks and padding lanes are held to the plain versions;
   6. card times at 1M paths x 600 months (bench.py's scenario), CUDA
      events, warm, min of 5: one 16-candidate probe, the full kernel
-     alone, and the full kernel plus summarize — kernel and plain version.
+     alone, and the full kernel plus summarize — kernel and plain version;
+     simulate (the grid kernel's one-row launch) and simulate_plain there;
+     one 16-row chunk of the 16 x 16 scenario grid (config.json, expenses
+     4,000-14,000 x equity mean 0.06-0.14, W=231, R=50, 1M paths): the grid
+     kernel alone, its plain version, the chunk's statistics; and the wall
+     time of the whole 256-variant x 1M grid through run_scenario_grid;
+  7. grid_kernel vs grid_plain on the card: that 16-row chunk at 1M paths
+     and a ragged 3 rows x 1,000 paths — per-row success within
+     max(0.3, 100/n) points, flags mismatching below 3e-3, the kernel's
+     counts equal to its own flags, dust-aware final balances — and each
+     row equal, flag for flag, to the probe kernel on that row's own block;
+  8. the analysis modes at full width through the port's host functions
+     on the card, launch counters reset before and read after each: the
+     256-variant x 1M grid (16 grid launches, no plain call; success never
+     rises with expenses in any equity-mean column), sensitivity of the 8
+     default parameters at 1M paths and W=231 (d success < 0 for expenses,
+     > 0 for the initial balance), a 1-D optimize of allocation_inv1_pct
+     over 0.3-0.9 (17 points x 3 rounds: 51 evaluations, best inside its
+     bracket); then bench.py's workload through simulate (one launch, held
+     to simulate_plain and to the probe kernel's flags at W=0).
 
-The line before the last is {"kernels": [...]}, the card's name and power
-limit stand on their own line, and the last line is
+The kernels' lines come before the last two: {"kernels": [...]}, then the
+card's name and power limit on their own line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import subprocess
@@ -46,6 +66,10 @@ PKG = "monte_carlo_retirement_tpu_torch"
 CU_SOURCE = f"{PKG}/engine/csrc/month_loop.cu"
 SEED = 2026
 N_CHECK = 65_536
+N_FULL = 1_000_000
+GRID_W = 231
+GRID_SIDE = 16  # the 16 x 16 grid of scripts/scenario_grid_demo.py
+GRID_CHUNK_ROW = 10  # the chunk of the grid checked and timed (expenses ~10.7k)
 PROBE_TOL_PTS = 0.3
 FLAG_MISMATCH = 3e-3
 NORMAL_RTOL = 2e-6
@@ -75,6 +99,33 @@ def _config(**overrides):
 def _few(bad: int, total: int, share: float = PATH_SHARE) -> bool:
     """At most ``share`` of ``total``, or a single one at small sizes."""
     return bad < share * total or bad <= 1
+
+
+def _grid_raw():
+    with open(os.path.join(REPO, "config.json"), encoding="utf-8") as fh:
+        raw = json.load(fh)
+    raw["seed"] = SEED
+    return raw
+
+
+def _grid_overrides():
+    """The 256 variants, expenses-major: row i * 16 + j has expenses[i] and
+    equity mean[j]."""
+    import numpy as np
+
+    expenses = np.linspace(4_000, 14_000, GRID_SIDE)
+    eq_means = np.linspace(0.06, 0.14, GRID_SIDE)
+    return [{"monthly_expenses": float(e), "inv1_returns_mean": float(m)}
+            for e in expenses for m in eq_means]
+
+
+def _grid_chunk_configs():
+    from monte_carlo_retirement_tpu_torch.config import Config
+
+    raw = _grid_raw()
+    start = GRID_CHUNK_ROW * GRID_SIDE
+    return [Config(**{**raw, **over})
+            for over in _grid_overrides()[start:start + GRID_SIDE]]
 
 
 def _time_ms(fn, repeats=5):
@@ -151,21 +202,17 @@ def phase_normals(report):
     report["normals_max_rel"] = rel
 
 
-def check_probe(report, tag, eng, months, n):
-    """probe_kernel vs probe_plain on one parameter block, ``n`` paths."""
+def _compare_rows(tag, what, out_k, out_p, n, label):
+    """A probe or grid kernel's (K, n) outputs vs its plain version's on the
+    same block; returns the largest |success % difference|."""
     import numpy as np
     import torch
-    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
 
-    packed = eng._pack(months, "search")
-    out_k = ck.probe(packed, eng.statics, eng.retirement_years, n)
-    out_p = ck.probe_plain(packed, eng.statics, eng.retirement_years, n)
-    torch.cuda.synchronize()
     flags_k, flags_p = out_k.success > 0.5, out_p.success > 0.5
     # The ballot + atomic count must see exactly the n real paths.
     if not torch.equal(out_k.counts, flags_k.sum(dim=1)):
         raise AssertionError(
-            f"[{tag}] probe_kernel counts {out_k.counts.tolist()} differ from "
+            f"[{tag}] {what} counts {out_k.counts.tolist()} differ from "
             f"its own flags {flags_k.sum(dim=1).tolist()}")
     pk = out_k.counts.double().cpu().numpy() / n * 100
     pp = out_p.counts.double().cpu().numpy() / n * 100
@@ -175,15 +222,72 @@ def check_probe(report, tag, eng, months, n):
     diff = (out_k.final_balance - out_p.final_balance).abs()
     rel = diff / out_p.final_balance.abs().clamp_min(1.0)
     dusty = float(((rel > FIELD_RTOL) & (diff > 5.0)).double().mean())
-    print(f"[{tag}] probe kernel vs plain, {n:,} paths, months {months}:")
+    print(f"[{tag}] {what} vs plain, {n:,} paths, {label}:")
     print(f"[{tag}]   kernel success % {np.round(pk, 3).tolist()}")
     print(f"[{tag}]   plain  success % {np.round(pp, 3).tolist()}")
     print(f"[{tag}]   max |d success| {err:.4f} pts (bound {tol:.3f}); flag "
           f"mismatch {flags:.2e} (bound {FLAG_MISMATCH:g}); finals off >0.5% "
           f"and >$5: {dusty:.2e} (bound 1e-3)")
     if not (err <= tol and flags < FLAG_MISMATCH and dusty <= 1e-3):
-        raise AssertionError(f"[{tag}] probe kernel disagrees with its plain version")
+        raise AssertionError(f"[{tag}] {what} disagrees with its plain version")
+    return err
+
+
+def check_probe(report, tag, eng, months, n):
+    """probe_kernel vs probe_plain on one parameter block, ``n`` paths."""
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+
+    packed = eng._pack(months, "search")
+    out_k = ck.probe(packed, eng.statics, eng.retirement_years, n)
+    out_p = ck.probe_plain(packed, eng.statics, eng.retirement_years, n)
+    torch.cuda.synchronize()
+    err = _compare_rows(tag, "probe kernel", out_k, out_p, n, f"months {months}")
     report["probe_err"] = max(report.get("probe_err", 0.0), err)
+
+
+def check_grid(report, tag, configs, months, n):
+    """grid_kernel vs grid_plain on one (K, F.NUM + 5S) block, ``n`` paths;
+    then every row against the probe kernel on that row's own block."""
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine.scenario_batch import (
+        _grid_stream_seed,
+        grid_statics,
+    )
+    from monte_carlo_retirement_tpu_torch.models.retirement import (
+        SimParams,
+        stack_params,
+    )
+
+    statics = grid_statics(configs)
+    R = configs[0].retirement_years
+    seed = _grid_stream_seed(SEED)
+    packed = ck.pack_grid(stack_params(configs), seed, months, R, device="cuda")
+    out_k = ck.grid(packed, statics, R, n)
+    out_p = ck.grid_plain(packed, statics, R, n)
+    torch.cuda.synchronize()
+    err = _compare_rows(tag, "grid kernel", out_k, out_p, n,
+                        f"{len(configs)} rows, months {months}")
+    report["grid_err"] = max(report.get("grid_err", 0.0), err)
+    worst = 0.0
+    for k, (cfg, w) in enumerate(zip(configs, months)):
+        # Packed where pack_grid packs (on the host), so the floats are the
+        # grid row's own, bit for bit.
+        row = ck.pack_params(SimParams.from_config(cfg), seed, [w], R,
+                             device="cuda")
+        if not torch.equal(row.fp, packed.fp[k]):
+            raise AssertionError(f"[{tag}] row {k} packs differently alone")
+        one = ck.probe(row, statics, R, n)
+        if not torch.equal(one.success[0], out_k.success[k]):
+            bad = int((one.success[0] != out_k.success[k]).sum())
+            raise AssertionError(
+                f"[{tag}] grid row {k} differs from the probe of its own block "
+                f"in {bad} flags")
+        worst = max(worst, float((one.final_balance[0]
+                                  - out_k.final_balance[k]).abs().max()))
+    print(f"[{tag}]   every row equals the probe kernel on its own block, flag "
+          f"for flag; max |final difference| {worst:.3e}")
 
 
 def check_full(report, tag, eng, W, n):
@@ -264,7 +368,7 @@ def phase_main_path(report):
     )
     from monte_carlo_retirement_tpu_torch.timing import expected_trajectory_length
 
-    launches = {name: 0 for name in ck.LAUNCHES}
+    launches = {"probe": 0, "full": 0}
     for label, n_search, n_final in (("a", None, None),
                                      ("b", 1_000_000, 1_000_000)):
         over = {}
@@ -284,7 +388,7 @@ def phase_main_path(report):
         res = sim.run_monte_carlo_simulations(months, cfg.num_simulations_main)
         t_final = time.perf_counter() - t1
         ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
-        if not all(ran.values()):
+        if not (ran["probe"] and ran["full"]):
             raise AssertionError(f"({label}) a kernel was not launched: {ran}")
         if any(plain.values()):
             raise AssertionError(f"({label}) plain versions ran: {plain}")
@@ -320,17 +424,25 @@ def phase_main_path(report):
         check_probe(report, f"5{label}", sim.engine, list(range(lo, lo + 16)),
                     cfg.num_simulations_search)
         check_full(report, f"5{label}", sim.engine, months, n)
-    report["launches"] = launches
+    report["launches"] = dict(launches)
     print(f"[5] launches over the two main-path runs: {launches}")
 
 
 def phase_timings(report):
+    import numpy as np
     import torch
     from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
     from monte_carlo_retirement_tpu_torch.engine.runner import Engine
+    from monte_carlo_retirement_tpu_torch.engine.scenario_batch import (
+        _grid_stats,
+        _grid_stream_seed,
+        grid_statics,
+        run_scenario_grid,
+    )
+    from monte_carlo_retirement_tpu_torch.models.retirement import stack_params
     from monte_carlo_retirement_tpu_torch.ops.stats import summarize
 
-    n = 1_000_000
+    n = N_FULL
     eng = Engine(_config(retirement_years=50, initial_balance=1_500_000.0,
                          monthly_expenses=4_000.0), device="cuda")
     R = eng.retirement_years
@@ -349,23 +461,187 @@ def phase_timings(report):
         "probe": _time_ms(lambda: ck.probe(probe_packed, eng.statics, R, n)),
         "full": _time_ms(full(ck.simulate_full)),
         "full_summarize": _time_ms(full_and_summary(ck.simulate_full)),
+        "simulate": _time_ms(
+            lambda: ck.simulate(full_packed, eng.statics, R, n)),
         "probe_plain": _time_ms(
             lambda: ck.probe_plain(probe_packed, eng.statics, R, n)),
         "full_plain": _time_ms(full(ck.simulate_full_plain)),
         "full_plain_summarize": _time_ms(full_and_summary(ck.simulate_full_plain)),
+        "simulate_plain": _time_ms(
+            lambda: ck.simulate_plain(full_packed, eng.statics, R, n), repeats=2),
     }
     succ = ck.probe(probe_packed, eng.statics, R, n).counts[0].item() / n * 100
     card = report["card"]
     print(f"[6] 1M paths x 600 months, W=0 (probe: 16 candidates, months 0-15), "
-          f"CUDA events, warm, min of 5, on {card}:")
+          f"CUDA events, warm, min of 5 (plain simulate: min of 2), on {card}:")
     print(f"[6]   probe kernel {times['probe']:.3f} ms | plain "
           f"{times['probe_plain']:.3f} ms")
     print(f"[6]   full kernel {times['full']:.3f} ms | plain "
           f"{times['full_plain']:.3f} ms")
     print(f"[6]   full kernel + summarize {times['full_summarize']:.3f} ms | "
           f"plain + summarize {times['full_plain_summarize']:.3f} ms")
+    print(f"[6]   simulate (grid kernel, one row) {times['simulate']:.3f} ms | "
+          f"plain {times['simulate_plain']:.3f} ms")
     print(f"[6]   success at W=0: {succ:.3f}%")
+
+    # One 16-row chunk of the 16 x 16 grid, and the whole grid's wall time.
+    configs = _grid_chunk_configs()
+    statics = grid_statics(configs)
+    GR = configs[0].retirement_years
+    months = [GRID_W] * len(configs)
+    packed = ck.pack_grid(stack_params(configs), _grid_stream_seed(SEED), months,
+                          GR, device="cuda")
+    out = ck.grid(packed, statics, GR, n)
+    times["grid"] = _time_ms(lambda: ck.grid(packed, statics, GR, n))
+    times["grid_stats"] = _time_ms(
+        lambda: _grid_stats(out.success, out.final_balance, n))
+    times["grid_plain"] = _time_ms(
+        lambda: ck.grid_plain(packed, statics, GR, n), repeats=1)
+    from monte_carlo_retirement_tpu_torch.config import Config
+
+    raw = _grid_raw()
+    all_configs = [Config(**{**raw, **over}) for over in _grid_overrides()]
+    walls = []
+    for _ in range(2):  # the first run warms the allocator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_scenario_grid(all_configs, [GRID_W] * len(all_configs), n,
+                                seed=SEED, device="cuda")
+        walls.append((time.perf_counter() - t0) * 1e3)
+    times["grid_256_wall"] = walls[-1]
+    per_chunk = times["grid"] + times["grid_stats"]
+    print(f"[6] scenario grid, config.json x 16 rows (expenses "
+          f"{configs[0].monthly_expenses:,.0f}), W={GRID_W}, R={GR}, 1M paths "
+          f"(CUDA events; plain: min of 1):")
+    print(f"[6]   grid kernel {times['grid']:.3f} ms | plain "
+          f"{times['grid_plain']:.3f} ms | chunk statistics (sorts) "
+          f"{times['grid_stats']:.3f} ms")
+    print(f"[6]   256 x 1M grid through run_scenario_grid: wall "
+          f"{walls[-1]:.1f} ms (first run {walls[0]:.1f} ms); 16 chunks x "
+          f"(kernel + statistics) = {16 * per_chunk:.1f} ms, the rest "
+          f"{walls[-1] - 16 * per_chunk:.1f} ms host and copies")
+    if not (np.isfinite(res.success_probability).all()
+            and res.final_balance_percentiles.shape == (len(all_configs), 5)):
+        raise AssertionError("[6] the 256-variant grid's results are malformed")
     report["times"] = times
+
+
+def phase_grid(report):
+    configs = _grid_chunk_configs()
+    check_grid(report, "7a", configs, [GRID_W] * len(configs), N_FULL)
+    from monte_carlo_retirement_tpu_torch.config import Config
+
+    raw = _grid_raw()
+    ragged = [Config(**{**raw, **over}) for over in (
+        {"monthly_expenses": 6_000.0, "allocation_inv1_pct": 0.8},
+        {"monthly_expenses": 11_000.0, "inv1_returns_mean": 0.09},
+        {"monthly_expenses": 9_000.0, "inv1_realized_gains_tax_rate": 0.2},
+    )]
+    check_grid(report, "7b", ragged, [0, 120, GRID_W], 1_000)
+
+
+def phase_modes(report):
+    import numpy as np
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.hosts.grid import (
+        GridRequest,
+        prepare_grid,
+        run_prepared_grid,
+    )
+    from monte_carlo_retirement_tpu_torch.hosts.optimize import (
+        OptimizeRequest,
+        run_optimize_request,
+    )
+    from monte_carlo_retirement_tpu_torch.hosts.sensitivity import (
+        SensitivityRequest,
+        run_sensitivity_request,
+    )
+
+    raw = _grid_raw()
+    launches = report["launches"]
+
+    def counted(label, fn):
+        ck.reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+        if any(plain.values()):
+            raise AssertionError(f"[{label}] plain versions ran: {plain}")
+        for name, count in ran.items():
+            launches[name] = launches.get(name, 0) + count
+        print(f"[{label}] wall {wall:.2f} s; launches {ran}")
+        return out, ran
+
+    request = GridRequest(config=raw, variants=[
+        {"overrides": over} for over in _grid_overrides()],
+        working_months=GRID_W, num_paths=N_FULL, chunk_size=16)
+    payload, ran = counted("8a", lambda: run_prepared_grid(
+        prepare_grid(request), request.chunk_size, device="cuda"))
+    if ran["grid"] != 16 or payload["total_scenarios"] != 256:
+        raise AssertionError(f"[8a] expected 16 grid launches, got {ran}")
+    succ = np.array([r["success_probability"] for r in payload["rows"]])
+    table = succ.reshape(GRID_SIDE, GRID_SIDE)  # rows: expenses, cols: eq mean
+    if not (np.diff(table, axis=0) <= 0).all():
+        raise AssertionError("[8a] success rose with expenses in some column")
+    print("[8a] 256 x 1M grid, success % (rows: expenses 4,000 -> 14,000; "
+          "columns: equity mean 0.06 -> 0.14):")
+    for row in table:
+        print("[8a]   " + " ".join(f"{v:6.2f}" for v in row))
+
+    sens_req = SensitivityRequest(config=raw, working_months=GRID_W,
+                                  num_paths=N_FULL)
+    sens, ran = counted("8b", lambda: run_sensitivity_request(sens_req,
+                                                              device="cuda"))
+    rows = {r["param"]: r for r in sens["rows"]}
+    for r in sens["rows"]:
+        print(f"[8b]   {r['param']:<32} d success/unit {r['d_success']:>12.4g}"
+              f"  per step {r['success_per_step']:>+8.3f}%  base "
+              f"{r['success_base']:.3f}%")
+    if not (ran["grid"] >= 2 and len(rows) == 8
+            and rows["monthly_expenses"]["d_success"] < 0
+            and rows["initial_balance"]["d_success"] > 0):
+        raise AssertionError("[8b] sensitivity signs or launches are wrong")
+
+    opt_req = OptimizeRequest(config=raw, working_months=GRID_W,
+                              param="allocation_inv1_pct", lo=0.3, hi=0.9,
+                              num_paths=N_FULL)
+    best, ran = counted("8c", lambda: run_optimize_request(opt_req,
+                                                           device="cuda"))
+    lo, hi = best["interval"]
+    print(f"[8c]   best allocation_inv1_pct {best['best']['value']:.6f} in "
+          f"[{lo:.6f}, {hi:.6f}]: success {best['best']['success_probability']:.3f}%"
+          f" ± {best['success_sigma']:.3f}; {best['evaluations']} evaluations")
+    if not (best["evaluations"] == 51 and ran["grid"] == 3
+            and lo <= best["best"]["value"] <= hi):
+        raise AssertionError("[8c] optimize result or launches are wrong")
+
+    # bench.py's workload through simulate (what ROADMAP A5's bench calls).
+    from monte_carlo_retirement_tpu_torch.engine.runner import Engine
+
+    eng = Engine(_config(retirement_years=50, initial_balance=1_500_000.0,
+                         monthly_expenses=4_000.0), device="cuda")
+    R, n = eng.retirement_years, N_FULL
+    packed = eng._pack(0, "search")
+    sim, ran = counted("8d", lambda: ck.simulate(packed, eng.statics, R, n))
+    if ran["simulate"] != 1:
+        raise AssertionError(f"[8d] simulate launches {ran}")
+    plain = ck.simulate_plain(packed, eng.statics, R, n)
+    probe = ck.probe(eng._pack([0, 1], "search"), eng.statics, R, n)
+    torch.cuda.synchronize()
+    err = _compare_rows(
+        "8d", "simulate (grid kernel, one row)",
+        ck.ProbeOut((sim.success > 0.5).sum()[None], sim.success[None],
+                    sim.final_balance[None]),
+        ck.ProbeOut((plain.success > 0.5).sum()[None], plain.success[None],
+                    plain.final_balance[None]),
+        n, "W=0, 1M x 600 months")
+    if not torch.equal(sim.success, probe.success[0]):
+        raise AssertionError("[8d] simulate's flags differ from the probe's at W=0")
+    print("[8d]   simulate's flags equal the probe kernel's at W=0")
+    report["sim_err"] = err
 
 
 def main() -> int:
@@ -380,9 +656,12 @@ def main() -> int:
 
     importlib.import_module(PKG)  # fails outside a checkout of the repo
 
+    # config.json's soft warning (equity volatility below 5%) would repeat
+    # for each of the grid's 256 variants.
+    logging.getLogger("mcrt.config").setLevel(logging.ERROR)
     report = {}
     for phase in (phase_build, phase_normals, phase_probe, phase_full,
-                  phase_main_path, phase_timings):
+                  phase_main_path, phase_timings, phase_grid, phase_modes):
         phase(report)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -397,10 +676,21 @@ def main() -> int:
          "replaces": "monte_carlo_retirement_tpu/engine/pallas_kernel.py:1405",
          "launches": launches["full"], "max_abs_err": report["full_err"],
          "ms": times["full"], "plain_ms": times["full_plain"]},
+        {"name": "grid_kernel", "route": "cuda", "source": CU_SOURCE,
+         "replaces": "monte_carlo_retirement_tpu/engine/pallas_kernel.py:1567",
+         "launches": launches["grid"], "max_abs_err": report["grid_err"],
+         "ms": times["grid"], "plain_ms": times["grid_plain"]},
+        {"name": "grid_kernel (simulate: one row)", "route": "cuda",
+         "source": CU_SOURCE,
+         "replaces": "monte_carlo_retirement_tpu/engine/pallas_kernel.py:1247",
+         "launches": launches["simulate"], "max_abs_err": report["sim_err"],
+         "ms": times["simulate"], "plain_ms": times["simulate_plain"]},
     ]
-    print("max_abs_err: probe = largest |success % difference| over every "
-          "probe check; full = largest |withdrawal-rate difference| (points) "
-          "over every full check; ms = the kernel alone (phase 6)")
+    print("max_abs_err: probe, grid and simulate = largest |success % "
+          "difference| over every check of that kernel; full = largest "
+          "|withdrawal-rate difference| (points) over every full check; "
+          "ms = the kernel alone (phase 6); launches = the main path "
+          "(phase 5), the analysis modes (8a-c) and bench.py's workload (8d)")
     print(json.dumps({"kernels": kernels}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {

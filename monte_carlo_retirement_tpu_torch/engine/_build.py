@@ -100,9 +100,11 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.mcrt_probe.argtypes = [vp, vp, i, i, i, i, i, i, vp, vp, vp, vp]
+            lib.mcrt_grid.argtypes = [vp, vp, i, i, i, i, i, i, vp, vp, vp, vp]
             lib.mcrt_full.argtypes = [vp, vp, i, i, i, i, i, i, vp, vp, vp, vp, vp]
             lib.mcrt_normals.argtypes = [vp, i, vp, vp, vp]
-            for fn in (lib.mcrt_probe, lib.mcrt_full, lib.mcrt_normals):
+            for fn in (lib.mcrt_probe, lib.mcrt_grid, lib.mcrt_full,
+                       lib.mcrt_normals):
                 fn.restype = i
             lib.mcrt_error_string.argtypes = [i]
             lib.mcrt_error_string.restype = ctypes.c_char_p

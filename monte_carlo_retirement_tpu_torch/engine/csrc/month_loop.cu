@@ -1,11 +1,15 @@
 // Month-loop kernels of the retirement Monte Carlo port, for Hopper (sm_90a).
 //
-// What they replace: the two Pallas TPU kernels on the main path, both forms
-// of the month-loop body built by `_make_kernel` in
+// What they replace: the Pallas TPU kernels, all forms of the month-loop
+// body built by `_make_kernel` in
 // monte_carlo_retirement_tpu/engine/pallas_kernel.py:
 //   * probe_kernel  <- pallas_probe (pallas_kernel.py:1325, call at :1387):
 //     candidate working-month counts x paths -> per-path alive flag and
 //     final balance, plus the exact success count per candidate;
+//   * grid_kernel   <- _scenario_grid_call (pallas_kernel.py:1567, call at
+//     :1640): the probe body with one parameter row per scenario (the
+//     scenario grid); its one-row launch replaces pallas_simulate
+//     (pallas_kernel.py:1247, call at :1309);
 //   * full_kernel   <- pallas_simulate_full (pallas_kernel.py:1405, call at
 //     :1500): the tracked body -> seven per-path vectors and the yearly
 //     trajectory, price-level and withdrawal-rate series.
@@ -27,7 +31,11 @@
 // (tax system per asset, number of CPI-indexed income streams) are template
 // parameters, so disabled branches compile out. Probe candidates run on
 // blockIdx.y and each thread recomputes its Philox words from (path, month):
-// candidates never enter the key, so they share their shocks exactly.
+// candidates never enter the key, so they share their shocks exactly. Grid
+// scenarios ride blockIdx.y the same way; each thread reads its row of the
+// (K, F.NUM + 5*S) parameter block once, into registers (the TPU kernel
+// measured per-use parameter reads in the loop at ~25x, docs/NOTES.md), and
+// the row never enters the key either, so CRN holds across the whole grid.
 // Division is IEEE `/` (no fast math), where Pallas used an approximate
 // reciprocal plus a Newton step.
 //
@@ -390,16 +398,21 @@ __device__ __forceinline__ PathOut run_path(
   return out;
 }
 
+// One candidate row (blockIdx.y) of a probe or grid launch: the loop for
+// this thread's path with the scenario at ``fp_row``, then the row's
+// survivor count over exactly n paths: padding lanes vote 0, one atomic per
+// block.
 template <bool U1, bool U2, int NS>
-__global__ void __launch_bounds__(kThreads)
-    probe_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
-                 int n, int R, float* __restrict__ success,
-                 float* __restrict__ final_bal, int* __restrict__ counts) {
+__device__ __forceinline__ void probe_row(const float* __restrict__ fp_row,
+                                          const int* __restrict__ ip, int n,
+                                          int R, float* __restrict__ success,
+                                          float* __restrict__ final_bal,
+                                          int* __restrict__ counts) {
   const int cand = blockIdx.y;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   int alive_i = 0;
   if (p < n) {
-    const Scenario<NS> sc(fp);
+    const Scenario<NS> sc(fp_row);
     const int* row = ip + cand * NUM_IPARAMS;
     const uint32_t gblock =
         static_cast<uint32_t>(p / kBlockPaths + row[I_BLOCK_OFF]);
@@ -412,7 +425,6 @@ __global__ void __launch_bounds__(kThreads)
     final_bal[idx] = o.final_bal;
     alive_i = o.alive > 0.5f;
   }
-  // Count over exactly n paths: padding lanes vote 0; one atomic per block.
   __shared__ int warp_counts[kThreads / 32];
   const unsigned ballot = __ballot_sync(0xffffffffu, alive_i);
   if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = __popc(ballot);
@@ -423,6 +435,26 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < kThreads / 32; ++i) total += warp_counts[i];
     atomicAdd(counts + cand, total);
   }
+}
+
+// Candidates share one parameter block (fp: F.NUM + 5*S floats).
+template <bool U1, bool U2, int NS>
+__global__ void __launch_bounds__(kThreads)
+    probe_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
+                 int n, int R, float* __restrict__ success,
+                 float* __restrict__ final_bal, int* __restrict__ counts) {
+  probe_row<U1, U2, NS>(fp, ip, n, R, success, final_bal, counts);
+}
+
+// One parameter row per scenario (fp: K rows of F.NUM + 5*S floats).
+template <bool U1, bool U2, int NS>
+__global__ void __launch_bounds__(kThreads)
+    grid_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
+                int n, int R, float* __restrict__ success,
+                float* __restrict__ final_bal, int* __restrict__ counts) {
+  constexpr int kRow = NUM_FPARAMS + 5 * NS;
+  probe_row<U1, U2, NS>(fp + static_cast<size_t>(blockIdx.y) * kRow, ip, n,
+                        R, success, final_bal, counts);
 }
 
 template <bool U1, bool U2, int NS>
@@ -476,6 +508,14 @@ void launch_probe(const float* fp, const int* ip, int k, int n, int R,
 }
 
 template <bool U1, bool U2, int NS>
+void launch_grid(const float* fp, const int* ip, int k, int n, int R,
+                 float* success, float* final_bal, int* counts,
+                 cudaStream_t stream) {
+  grid_kernel<U1, U2, NS><<<dim3(blocks_for(n), k), kThreads, 0, stream>>>(
+      fp, ip, n, R, success, final_bal, counts);
+}
+
+template <bool U1, bool U2, int NS>
 void launch_full(const float* fp, const int* ip, int n, int R, int L,
                  float* vecs, float* traj, float* price, float* wr,
                  cudaStream_t stream) {
@@ -510,6 +550,12 @@ struct ProbeOp {
 };
 
 template <bool U1, bool U2, int NS>
+struct GridOp {
+  template <typename... A>
+  static void run(A... a) { launch_grid<U1, U2, NS>(a...); }
+};
+
+template <bool U1, bool U2, int NS>
 struct FullOp {
   template <typename... A>
   static void run(A... a) { launch_full<U1, U2, NS>(a...); }
@@ -534,6 +580,26 @@ int mcrt_probe(const void* fp, const void* ip, int n_cand, int n_paths,
                          static_cast<float*>(final_bal),
                          static_cast<int*>(counts),
                          static_cast<cudaStream_t>(stream)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rows ride gridDim.y, so 1 <= n_rows <= 65535.
+int mcrt_grid(const void* fp, const void* ip, int n_rows, int n_paths,
+              int retirement_years, int use_real1, int use_real2,
+              int n_streams, void* success, void* final_bal, void* counts,
+              void* stream) {
+  if (n_rows < 1 || n_rows > 65535 || n_paths < 1 || n_streams < 0 ||
+      n_streams > kMaxStreams)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaGetLastError();
+  if (!dispatch<GridOp>(use_real1, use_real2, n_streams,
+                        static_cast<const float*>(fp),
+                        static_cast<const int*>(ip), n_rows, n_paths,
+                        retirement_years, static_cast<float*>(success),
+                        static_cast<float*>(final_bal),
+                        static_cast<int*>(counts),
+                        static_cast<cudaStream_t>(stream)))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,22 +1,28 @@
 """The port's kernels: wrappers, plain versions and their parameter block.
 
-Counterpart of the JAX package's ``engine/pallas_kernel.py``. Two kernels
-carry the main path, both forms of one month loop (``csrc/month_loop.cu``):
+Counterpart of the JAX package's ``engine/pallas_kernel.py``. Every
+kernel is a form of one month loop (``csrc/month_loop.cu``):
 
   * :func:`probe` replaces ``pallas_probe`` (``pallas_kernel.py:1325``):
     candidate working-month counts x paths, shocks shared across
     candidates -> per-path alive flags and final balances plus the exact
     success count per candidate;
+  * :func:`grid` replaces ``_scenario_grid_call`` (``pallas_kernel.py:1567``):
+    the same body with one parameter row per scenario (:func:`pack_grid`),
+    shocks shared across the whole grid;
+  * :func:`simulate` replaces ``pallas_simulate`` (``pallas_kernel.py:1247``):
+    the grid kernel launched with one row -> per-path success and final
+    balance;
   * :func:`simulate_full` replaces ``pallas_simulate_full``
     (``pallas_kernel.py:1405``): the tracked loop -> seven per-path vectors
     and the yearly trajectory, price-level and withdrawal-rate series.
 
 Beside each wrapper is its plain PyTorch version (:func:`probe_plain`,
-:func:`simulate_full_plain`, thin calls into ``engine/kernel.py``). A
-wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches its kernel or raises. ``LAUNCHES`` counts kernel
-launches and ``PLAIN_CALLS`` plain calls, so a run can show which path it
-took.
+:func:`grid_plain`, :func:`simulate_plain`, :func:`simulate_full_plain`,
+thin calls into ``engine/kernel.py``). A wrapper takes the plain version
+only for tensors on the CPU; for CUDA tensors it launches its kernel or
+raises. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain
+calls, so a run can show which path it took.
 
 Compile-time structure is ``Statics`` (same fields and derivation as
 ``pallas_kernel.Statics``). This slice implements the Statics of
@@ -30,8 +36,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..constants import MONTHS_PER_YEAR
@@ -40,8 +47,11 @@ from ..models.retirement import SimParams, prune_streams
 MAX_STREAMS = 4
 
 # Kernel launches / plain-version calls since the last reset.
-LAUNCHES: Dict[str, int] = {"probe": 0, "full": 0}
-PLAIN_CALLS: Dict[str, int] = {"probe": 0, "full": 0}
+LAUNCHES: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0}
+PLAIN_CALLS: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0}
+
+# Rows of a probe or grid launch ride gridDim.y.
+MAX_ROWS = 65535
 
 
 def reset_counts() -> None:
@@ -135,10 +145,13 @@ def check_slice(statics: Statics) -> None:
 class Packed:
     """The kernels' argument block.
 
-    ``fp``: (F.NUM + 5*S,) floats — the scenario parameters, then the stream
-    table rows [amount, months_from_t0, duration (capped at 3e7), indexed,
-    tax], each of length S. ``ip``: (K, 4) int32 rows [W, t_end, seed,
-    block_offset], one per candidate. Both live on the device they run on.
+    ``fp``: the scenario parameters, then the stream table rows [amount,
+    months_from_t0, duration (capped at 3e7), indexed, tax], each of length
+    S — one block of (F.NUM + 5*S,) floats shared by every candidate
+    (:func:`pack_params`), or (K, F.NUM + 5*S), one row per scenario
+    (:func:`pack_grid`). ``ip``: (K, 4) int32 rows [W, t_end, seed,
+    block_offset], one per candidate or scenario. Both live on the device
+    they run on.
     """
 
     fp: torch.Tensor
@@ -150,20 +163,12 @@ class Packed:
         return self.fp.device
 
 
-def pack_params(
-    params: SimParams,
-    seed: int,
-    working_months,
-    retirement_years: int,
-    block_offset: int = 0,
-    dtype=torch.float32,
-    device=None,
-) -> Packed:
-    """``pallas_kernel._pack_params`` plus ``_stream_inputs``, in ``dtype``
-    (every derived value computed in that dtype, like the JAX packing)."""
-    device = params.initial_balance.device if device is None else device
-    require_device(device)
-    p = lambda t: t.detach().to(device=device, dtype=dtype)
+def _fparams(params: SimParams, dtype) -> torch.Tensor:
+    """``pallas_kernel._pack_params``' float block plus ``_stream_inputs``,
+    every derived value computed in ``dtype`` like the JAX packing, on the
+    parameters' own device. Leaves may carry a leading scenario axis: the
+    block is then (K, F.NUM + 5*S)."""
+    p = lambda t: t.detach().to(dtype=dtype)
     sq = math.sqrt(MONTHS_PER_YEAR)
     vals = [
         p(params.mu1) / MONTHS_PER_YEAR,
@@ -206,7 +211,11 @@ def pack_params(
         p(params.stream_indexed),
         p(params.stream_tax),
     ]
-    fp = torch.cat([torch.stack(vals)] + streams)
+    return torch.cat([torch.stack(vals, dim=-1)] + streams, dim=-1)
+
+
+def _iparams(working_months, retirement_years: int, seed: int,
+             block_offset: int, device) -> torch.Tensor:
     w = torch.as_tensor(working_months, dtype=torch.int64).reshape(-1)
     t_end = w + MONTHS_PER_YEAR * int(retirement_years)
     ip = torch.stack(
@@ -217,17 +226,102 @@ def pack_params(
             torch.full_like(w, int(block_offset)),
         ],
         dim=1,
-    ).to(device=device, dtype=torch.int32)
-    return Packed(fp=fp.contiguous(), ip=ip.contiguous(),
+    )
+    return ip.to(device=device, dtype=torch.int32).contiguous()
+
+
+def pack_params(
+    params: SimParams,
+    seed: int,
+    working_months,
+    retirement_years: int,
+    block_offset: int = 0,
+    dtype=torch.float32,
+    device=None,
+) -> Packed:
+    """``pallas_kernel._pack_params`` plus ``_stream_inputs``: one parameter
+    block shared by the candidate months ``working_months``."""
+    device = params.initial_balance.device if device is None else device
+    require_device(device)
+    fp = _fparams(params, dtype).to(device)
+    return Packed(fp=fp.contiguous(),
+                  ip=_iparams(working_months, retirement_years, seed,
+                              block_offset, device),
                   n_streams=params.n_streams)
 
 
-def unpack_streams(packed: Packed) -> List[List[float]]:
-    """The stream table as five Python lists (amount, from_t0, duration,
-    indexed, tax)."""
-    S = packed.n_streams
-    tail = packed.fp[F.NUM:].tolist()
-    return [tail[i * S:(i + 1) * S] for i in range(5)]
+def pack_grid(
+    params_batch: SimParams,
+    seed: int,
+    working_months,
+    retirement_years: int,
+    block_offset: int = 0,
+    dtype=torch.float32,
+    device=None,
+) -> Packed:
+    """The scenario grid's block: ``fp`` (K, F.NUM + 5*S), one row per
+    scenario of the stacked ``params_batch`` (``models.retirement.
+    stack_params``), and ``ip`` (K, 4) with each scenario's months. The
+    rows are packed where the batch lives and moved to ``device`` in one
+    copy."""
+    device = params_batch.initial_balance.device if device is None else device
+    require_device(device)
+    if params_batch.initial_balance.ndim != 1:
+        raise ValueError(
+            "pack_grid takes a stacked batch (leaves with a leading scenario "
+            f"axis), got leaves of shape {tuple(params_batch.initial_balance.shape)}"
+        )
+    k = int(params_batch.initial_balance.shape[0])
+    ip = _iparams(working_months, retirement_years, seed, block_offset, device)
+    if ip.shape[0] != k:
+        raise ValueError(
+            f"scenario grid of {k} rows needs one months row per scenario; "
+            f"got {ip.shape[0]} months rows"
+        )
+    fp = _fparams(params_batch, dtype).to(device)
+    return Packed(fp=fp.contiguous(), ip=ip, n_streams=params_batch.n_streams)
+
+
+def check_grid_statics(params_batch: SimParams, statics: Statics) -> None:
+    """Raise unless every row of a stacked batch matches the compile-time
+    ``statics`` (``pallas_kernel._check_grid_statics``): the grid kernel
+    branches on the shared flags only, so a mismatched row would silently
+    simulate under another row's tax system or stream structure."""
+    a = lambda name: getattr(params_batch, name).detach().cpu().numpy()
+    u1, u2 = a("use_real1") > 0.5, a("use_real2") > 0.5
+    a1, a2 = a("ann_tax1") > 0.0, a("ann_tax2") > 0.0
+    s_idx = a("stream_indexed") > 0.5
+    s_cap = np.isfinite(a("stream_duration_months"))
+    glide_rows = a("alloc1_final") != a("alloc1")
+    gr_rows = a("gr_adjust") > 0.0
+    jump_rows = a("jump_p") > 0.0
+    mort_rows = a("mort_b12") > 0.0
+    want_idx = np.asarray(statics.stream_indexed, dtype=bool)
+    want_cap = np.asarray(statics.stream_capped, dtype=bool)
+    ok = (
+        bool((u1 == statics.use_real1).all())
+        and bool((u2 == statics.use_real2).all())
+        and bool(((~u1 & a1) == statics.bill1).all())
+        and bool(((~u2 & a2) == statics.bill2).all())
+        and (statics.glide or not bool(glide_rows.any()))
+        and (statics.guardrails or not bool(gr_rows.any()))
+        and (statics.jumps or not bool(jump_rows.any()))
+        and (statics.mortality or not bool(mort_rows.any()))
+    )
+    if ok and want_idx.size:
+        ok = (
+            s_idx.shape[-1] == want_idx.size
+            and bool((s_idx.reshape(-1, want_idx.size) == want_idx).all())
+            and bool((s_cap.reshape(-1, want_cap.size) == want_cap).all())
+        )
+    if not ok:
+        raise ValueError(
+            "scenario batch mixes tax-system/annual-bill/stream structure "
+            "that conflicts with the compile-time Statics; all rows of one "
+            "grid launch must share them (see "
+            "engine.scenario_batch.grid_statics). Mixed batches "
+            "(run_scenario_batch) wait for ROADMAP.md item A9."
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -260,9 +354,13 @@ def _runs_plain(packed: Packed, statics: Statics, what: str) -> bool:
             f"the {what} kernel takes float32 params and int32 iparams, got "
             f"{fp.dtype} / {ip.dtype}"
         )
+    width = F.NUM + 5 * S
+    rows = ip.shape[0] if ip.ndim == 2 else -1
+    fp_ok = fp.shape == ((rows, width) if fp.ndim == 2 else (width,))
     if (fp.device != ip.device or not fp.is_contiguous()
-            or not ip.is_contiguous() or fp.shape != (F.NUM + 5 * S,)
+            or not ip.is_contiguous() or not fp_ok
             or ip.ndim != 2 or ip.shape[1] != NUM_IPARAMS
+            or not 1 <= rows <= MAX_ROWS
             or len(statics.stream_indexed) != S):
         raise ValueError(
             f"malformed parameter block for the {what} kernel: fp "
@@ -278,9 +376,47 @@ def _stream_ptr(device) -> int:
 
 
 class ProbeOut(NamedTuple):
-    counts: torch.Tensor  # (K,) int64 — surviving paths per candidate
+    counts: torch.Tensor  # (K,) int64 — surviving paths per candidate/row
     success: torch.Tensor  # (K, n) float 0/1 alive flags
     final_balance: torch.Tensor  # (K, n)
+
+
+class SimulateOut(NamedTuple):
+    success: torch.Tensor  # (n,) float 0/1 alive flags
+    final_balance: torch.Tensor  # (n,)
+
+
+def _launch_rows(entry: str, packed: Packed, statics: Statics,
+                 retirement_years: int, n_paths: int) -> ProbeOut:
+    """One launch of ``probe_kernel`` (``mcrt_probe``) or ``grid_kernel``
+    (``mcrt_grid``): K rows x ``n_paths`` paths."""
+    from . import _build
+
+    lib = _build.load()
+    dev = packed.device
+    K, n = packed.ip.shape[0], int(n_paths)
+    success = torch.empty((K, n), dtype=torch.float32, device=dev)
+    final = torch.empty((K, n), dtype=torch.float32, device=dev)
+    counts = torch.zeros(K, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            packed.fp.data_ptr(), packed.ip.data_ptr(), K, n,
+            int(retirement_years), int(statics.use_real1),
+            int(statics.use_real2), packed.n_streams, success.data_ptr(),
+            final.data_ptr(), counts.data_ptr(), _stream_ptr(dev),
+        )
+    _build.check(lib, rc, f"{entry} launch")
+    return ProbeOut(counts.to(torch.int64), success, final)
+
+
+def _plain_rows(packed: Packed, statics: Statics, retirement_years: int,
+                n_paths: int, shocks: Optional[torch.Tensor]) -> ProbeOut:
+    from . import kernel
+
+    out = kernel.simulate(packed, statics, retirement_years, n_paths,
+                          shocks=shocks)
+    counts = (out["success"] > 0.5).sum(dim=1)
+    return ProbeOut(counts, out["success"], out["final_balance"])
 
 
 # ---------------------------------------------------------------------------
@@ -291,39 +427,82 @@ def probe(packed: Packed, statics: Statics, retirement_years: int,
     """Per-candidate survivors over exactly ``n_paths`` paths (kernel on a
     CUDA tensor, plain version on a CPU tensor)."""
     check_slice(statics)
+    if packed.fp.ndim != 1:
+        raise ValueError("probe takes one shared parameter block (pack_params)")
     if _runs_plain(packed, statics, "probe"):
         return probe_plain(packed, statics, retirement_years, n_paths)
-    from . import _build
-
-    lib = _build.load()
-    dev = packed.device
-    K, n = packed.ip.shape[0], int(n_paths)
-    success = torch.empty((K, n), dtype=torch.float32, device=dev)
-    final = torch.empty((K, n), dtype=torch.float32, device=dev)
-    counts = torch.zeros(K, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.mcrt_probe(
-            packed.fp.data_ptr(), packed.ip.data_ptr(), K, n,
-            int(retirement_years), int(statics.use_real1),
-            int(statics.use_real2), packed.n_streams, success.data_ptr(),
-            final.data_ptr(), counts.data_ptr(), _stream_ptr(dev),
-        )
-    _build.check(lib, rc, "probe_kernel launch")
+    out = _launch_rows("mcrt_probe", packed, statics, retirement_years, n_paths)
     LAUNCHES["probe"] += 1
-    return ProbeOut(counts.to(torch.int64), success, final)
+    return out
 
 
 def probe_plain(packed: Packed, statics: Statics, retirement_years: int,
                 n_paths: int, shocks: Optional[torch.Tensor] = None) -> ProbeOut:
     """Plain PyTorch version of :func:`probe` (optionally on injected
     shocks, (T, 3, n))."""
-    from .kernel import simulate
-
     check_slice(statics)
     PLAIN_CALLS["probe"] += 1
-    out = simulate(packed, statics, retirement_years, n_paths, shocks=shocks)
-    counts = (out["success"] > 0.5).sum(dim=1)
-    return ProbeOut(counts, out["success"], out["final_balance"])
+    return _plain_rows(packed, statics, retirement_years, n_paths, shocks)
+
+
+# ---------------------------------------------------------------------------
+# scenario grid: one parameter row per scenario, shocks shared by the grid
+# ---------------------------------------------------------------------------
+def grid(packed: Packed, statics: Statics, retirement_years: int,
+         n_paths: int) -> ProbeOut:
+    """Per-scenario survivors, alive flags and final balances (K, n) over
+    exactly ``n_paths`` paths for a :func:`pack_grid` block (kernel on a
+    CUDA tensor, plain version on a CPU tensor)."""
+    check_slice(statics)
+    if packed.fp.ndim != 2:
+        raise ValueError("grid takes one parameter row per scenario (pack_grid)")
+    if _runs_plain(packed, statics, "grid"):
+        return grid_plain(packed, statics, retirement_years, n_paths)
+    out = _launch_rows("mcrt_grid", packed, statics, retirement_years, n_paths)
+    LAUNCHES["grid"] += 1
+    return out
+
+
+def grid_plain(packed: Packed, statics: Statics, retirement_years: int,
+               n_paths: int, shocks: Optional[torch.Tensor] = None) -> ProbeOut:
+    """Plain PyTorch version of :func:`grid`: one vectorised loop over the
+    K rows (optionally on injected shocks, (T, 3, n))."""
+    check_slice(statics)
+    PLAIN_CALLS["grid"] += 1
+    return _plain_rows(packed, statics, retirement_years, n_paths, shocks)
+
+
+def _one_row(packed: Packed) -> Packed:
+    """The block as a one-row grid block (same memory, fp (1, F.NUM + 5S))."""
+    if packed.ip.shape[0] != 1:
+        raise ValueError("simulate takes one working_months value")
+    return Packed(fp=packed.fp.reshape(1, -1), ip=packed.ip,
+                  n_streams=packed.n_streams)
+
+
+def simulate(packed: Packed, statics: Statics, retirement_years: int,
+             n_paths: int) -> SimulateOut:
+    """One working-months value -> per-path success flags and final
+    balances (n,), as ``pallas_simulate`` returns them: the grid kernel
+    launched with one row."""
+    check_slice(statics)
+    row = _one_row(packed)
+    if _runs_plain(packed, statics, "simulate"):
+        return simulate_plain(packed, statics, retirement_years, n_paths)
+    out = _launch_rows("mcrt_grid", row, statics, retirement_years, n_paths)
+    LAUNCHES["simulate"] += 1
+    return SimulateOut(out.success[0], out.final_balance[0])
+
+
+def simulate_plain(packed: Packed, statics: Statics, retirement_years: int,
+                   n_paths: int, shocks: Optional[torch.Tensor] = None
+                   ) -> SimulateOut:
+    """Plain PyTorch version of :func:`simulate`."""
+    check_slice(statics)
+    PLAIN_CALLS["simulate"] += 1
+    out = _plain_rows(_one_row(packed), statics, retirement_years, n_paths,
+                      shocks)
+    return SimulateOut(out.success[0], out.final_balance[0])
 
 
 # ---------------------------------------------------------------------------
@@ -376,12 +555,12 @@ def simulate_full_plain(packed: Packed, statics: Statics,
                         shocks: Optional[torch.Tensor] = None
                         ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of :func:`simulate_full`."""
-    from .kernel import simulate
+    from . import kernel
 
     check_slice(statics)
     PLAIN_CALLS["full"] += 1
-    return simulate(packed, statics, retirement_years, n_paths,
-                    traj_len=traj_len, shocks=shocks)
+    return kernel.simulate(packed, statics, retirement_years, n_paths,
+                           traj_len=traj_len, shocks=shocks)
 
 
 # ---------------------------------------------------------------------------

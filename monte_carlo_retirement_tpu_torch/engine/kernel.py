@@ -9,7 +9,9 @@ the alive-months counter that becomes years-to-ruin (NaN for survivors).
 
 Shocks come either injected, ``(T, 3, n)`` with month m reading row m-1, or
 from the Philox stream of ``ops/shocks.py``. Candidates (rows of the packed
-iparams) share one month's draws and differ only in their working months:
+iparams) share one month's draws and differ in their working months and,
+in a scenario grid, in their parameter rows (each parameter is a column
+that broadcasts over the paths, so one vectorised loop runs K scenarios):
 a candidate takes the accumulation step while m <= W and the retirement
 step while W < m <= W + 12R. The loop runs in float64 on the CPU (the
 tests and the CPU engine) and in float32 on the card, where it is the
@@ -33,7 +35,7 @@ from ..ops.tax import (
     rebalance_lite,
     withdraw_pro_rata,
 )
-from .cuda_kernel import F, unpack_streams
+from .cuda_kernel import F
 
 EPS = SMALL_EPSILON
 Y = MONTHS_PER_YEAR
@@ -49,7 +51,9 @@ def simulate(
 ) -> Dict[str, torch.Tensor]:
     """Run the month loop for every candidate row of ``packed``.
 
-    Returns ``success`` and ``final_balance`` of shape (K, n); with
+    ``packed.fp`` is one parameter block shared by the candidates (the
+    probe) or one row per candidate (the scenario grid). Returns
+    ``success`` and ``final_balance`` of shape (K, n); with
     ``traj_len > 0`` (one candidate only) also the tracked per-path vectors
     (n,) and the series ``trajectory``/``price_levels`` (n, traj_len) and
     ``withdrawal_rates`` (n, R).
@@ -59,7 +63,6 @@ def simulate(
     track = traj_len > 0
     dtype = packed.fp.dtype
     dev = packed.fp.device
-    fp = packed.fp.tolist()
     ip = packed.ip.tolist()
     K = len(ip)
     if track and K != 1:
@@ -69,17 +72,29 @@ def simulate(
         raise ValueError("candidates must share their seed and block offset")
     w_list = [r[0] for r in ip]
     t_end_list = [r[1] for r in ip]
-    s_amount, s_from_t0, _s_dur, _s_idx, s_tax = unpack_streams(packed)
-    S = len(s_amount)
+    S = packed.n_streams
+    # Every parameter is a (1, 1) or (K, 1) column that broadcasts against
+    # the (K, n) state.
+    fp = packed.fp.reshape(-1, F.NUM + 5 * S)
+    if fp.shape[0] not in (1, K):
+        raise ValueError(
+            f"{fp.shape[0]} parameter rows for {K} candidate rows"
+        )
 
-    def c(v):
-        """A parameter as a 0-d tensor in the loop's dtype."""
-        return torch.tensor(v, dtype=dtype, device=dev)
+    def col(i):
+        return fp[:, i:i + 1]
 
     rtol = fail_rtol(dtype)
     use1, use2 = statics.use_real1, statics.use_real2
-    r1, r2 = fp[F.R_REAL1], fp[F.R_REAL2]
-    alloc1 = fp[F.ALLOC1]
+    r1, r2 = col(F.R_REAL1), col(F.R_REAL2)
+    alloc1 = col(F.ALLOC1)
+    init_bal, expenses = col(F.INIT_BAL), col(F.EXPENSES)
+    contrib0, log1p_growth = col(F.CONTRIB0), col(F.LOG1P_GROWTH)
+    mu1, s1, mui, si = col(F.MU1_M), col(F.S1_M), col(F.MUI_M), col(F.SI_M)
+    mup, sp, rho, rho_c = col(F.MUP_M), col(F.SP_M), col(F.RHO), col(F.RHO_C)
+    s_amount = [col(F.NUM + s) for s in range(S)]
+    s_from_t0 = [col(F.NUM + S + s) for s in range(S)]
+    stream_net = [1.0 - col(F.NUM + 4 * S + s) for s in range(S)]
     w_t = torch.tensor(w_list, dtype=torch.int64, device=dev)[:, None]
     t_end_t = torch.tensor(t_end_list, dtype=torch.int64, device=dev)[:, None]
     w_f = w_t.to(dtype)
@@ -89,7 +104,6 @@ def simulate(
         )
         for s in range(S)
     ]
-    stream_net = [1.0 - s_tax[s] for s in range(S)]
 
     if shocks is None:
         gblock, lane = path_keys(n, boff, dev)
@@ -99,15 +113,15 @@ def simulate(
             z = shocks[m - 1].to(dtype)
         else:
             z = month_normals(seed, gblock, m, lane).to(dtype)
-        z_inf = fp[F.RHO] * z[0] + fp[F.RHO_C] * z[1]
-        g1 = torch.exp(fp[F.MU1_M] + fp[F.S1_M] * z[0])
-        gi = torch.exp(fp[F.MUI_M] + fp[F.SI_M] * z_inf)
-        gp = torch.exp(fp[F.MUP_M] + fp[F.SP_M] * z[2])
+        z_inf = rho * z[0] + rho_c * z[1]
+        g1 = torch.exp(mu1 + s1 * z[0])
+        gi = torch.exp(mui + si * z_inf)
+        gp = torch.exp(mup + sp * z[2])
         return g1, gi, gi * gp
 
     shape = (K, n)
-    b1 = torch.full(shape, fp[F.INIT_BAL] * alloc1, dtype=dtype, device=dev)
-    b2 = fp[F.INIT_BAL] - b1
+    b1 = (init_bal * alloc1).expand(shape).contiguous()
+    b2 = init_bal - b1
     st = {
         "b1": b1, "c1": b1.clone(), "b2": b2, "c2": b2.clone(),
         "infl": torch.ones(shape, dtype=dtype, device=dev),
@@ -118,7 +132,7 @@ def simulate(
         zeros = torch.zeros(shape, dtype=dtype, device=dev)
         st.update(ytr=zeros, yg=zeros, yr=zeros, fyg=zeros, fyr=zeros)
         traj = torch.zeros((L, n), dtype=dtype, device=dev)
-        traj[0] = fp[F.INIT_BAL]
+        traj[0] = init_bal[0, 0]
         price = torch.ones((L, n), dtype=dtype, device=dev)
         wr = torch.full((R, n), math.nan, dtype=dtype, device=dev)
         w = w_list[0]
@@ -130,7 +144,7 @@ def simulate(
         b1, b2 = s["b1"] * g1, s["b2"] * g2
         infl = s["infl"] * gi
         years = (m - 1) // Y
-        contrib = c(fp[F.CONTRIB0]) * torch.exp(c(fp[F.LOG1P_GROWTH]) * years)
+        contrib = contrib0 * torch.exp(log1p_growth * years)
         ca1 = contrib * alloc1
         ca2 = contrib - ca1
         b1, c1 = b1 + ca1, s["c1"] + ca1
@@ -158,7 +172,7 @@ def simulate(
 
         # --- income waterfall & net spending need
         price0 = infl
-        need = fp[F.EXPENSES] * price0
+        need = expenses * price0
         if S:
             net_income = None
             for i in range(S):

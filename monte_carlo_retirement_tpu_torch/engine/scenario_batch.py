@@ -1,0 +1,217 @@
+"""The scenario grid: a batch of configs as chunked launches of one kernel.
+
+Counterpart of the JAX package's ``engine/scenario_batch.py`` for its grid
+path (``run_scenario_grid``, lines 255-392). A grid is K configs that share
+their compile-time ``Statics`` and ``retirement_years``; their parameters
+are stacked (``models.retirement.stack_params``) into one (K, F.NUM + 5*S)
+block, one row per scenario (``cuda_kernel.pack_grid``), and each chunk of
+rows is one launch of the grid kernel (``cuda_kernel.grid``; its plain
+version on the CPU). Shocks depend only on (stream seed, path block, month,
+lane), never on the row, so the whole grid shares them (common random
+numbers) and chunking never changes a result.
+
+After each launch the per-scenario statistics (``_grid_stats``) are reduced
+on the same device and only a (K, 9) table leaves it. Launches are
+asynchronous on the card, so the host packs and launches chunk i+1 before
+it copies chunk i's table back (an in-flight window of ``MCRT_GRID_WINDOW``
+chunks).
+
+Not here yet: ``run_scenario_batch``, the JAX package's path for mixed-
+Statics batches (ROADMAP.md item A9).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Callable, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..models.retirement import stack_params
+from ..ops.quantiles import exact_quantiles
+from .cuda_kernel import (
+    Statics,
+    check_grid_statics,
+    check_slice,
+    grid,
+    pack_grid,
+    require_device,
+    statics_from_config,
+)
+
+log = logging.getLogger("mcrt.grid")
+
+# Decision-grade per-scenario final-balance bands (grid serving payload).
+GRID_FINAL_PERCENTILES = (0.05, 0.25, 0.50, 0.75, 0.95)
+
+
+class ScenarioBatchResult(NamedTuple):
+    success_probability: np.ndarray  # (k,) percent
+    median_final_balance: np.ndarray  # (k,)
+    mean_final_balance: np.ndarray  # (k,)
+    success_sigma: np.ndarray  # (k,) one-sigma binomial MC error, percent
+    final_balance_percentiles: np.ndarray  # (k, 5) at GRID_FINAL_PERCENTILES
+
+    def concat(self, other: "ScenarioBatchResult") -> "ScenarioBatchResult":
+        return ScenarioBatchResult(
+            *(np.concatenate([a, b]) for a, b in zip(self, other))
+        )
+
+
+def grid_statics(configs: Sequence[Config]) -> Statics:
+    """The shared compile-time Statics of a scenario batch.
+
+    The grid kernel bakes tax systems and stream structure into its template
+    instance, so every config of one grid must share them. Raises
+    ValueError when the batch mixes them (the JAX message)."""
+    statics = {statics_from_config(c) for c in configs}
+    if len(statics) != 1:
+        raise ValueError(
+            "all configs in a scenario grid must share tax systems and "
+            "stream structure (compile-time Statics); split the batch by "
+            f"statics. Got {len(statics)} distinct combinations."
+        )
+    return next(iter(statics))
+
+
+def _grid_stats(success: torch.Tensor, final: torch.Tensor, n_paths: int):
+    """Per-scenario reductions of (k, n) tables on their device: success %
+    and its binomial sigma, the mean final balance and the
+    GRID_FINAL_PERCENTILES bands over all n paths (ruined paths keep the
+    final balance the kernel gave them). Returns (p, median, mean, sigma,
+    percentiles (k, 5)); success and sigma in float64, counted exactly."""
+    succ = success[:, :n_paths]
+    fin = final[:, :n_paths]
+    p = succ.sum(dim=1, dtype=torch.float64) / n_paths * 100.0
+    frac = p / 100.0
+    sigma = torch.sqrt(torch.clamp(frac * (1.0 - frac), min=0.0) / n_paths) * 100.0
+    mean_final = fin.mean(dim=1, dtype=torch.float64)
+    # The (n, k) view of the (k, n) table: the quantiles sort its rows
+    # without a copy of the input.
+    pcts = exact_quantiles(fin.t(), GRID_FINAL_PERCENTILES)  # (5, k)
+    return p, pcts[2], mean_final, sigma, pcts.t()
+
+
+def _grid_stream_seed(seed: int) -> int:
+    """Stable 31-bit Philox seed for the grid's 'final' stream — the same
+    derivation as Engine._stream_seed(stream='final')."""
+    state = np.random.SeedSequence([int(seed), 1]).generate_state(1)
+    return int(state[0] % (2**31))
+
+
+def _stats_table(stats) -> torch.Tensor:
+    """The five statistics as one (k, 9) float64 table: one copy to host."""
+    p, med, mean, sigma, pcts = stats
+    cols = [p, med.to(torch.float64), mean, sigma]
+    return torch.cat([torch.stack(cols, dim=1), pcts.to(torch.float64)], dim=1)
+
+
+def _from_table(table: np.ndarray) -> ScenarioBatchResult:
+    return ScenarioBatchResult(
+        success_probability=table[:, 0],
+        median_final_balance=table[:, 1],
+        mean_final_balance=table[:, 2],
+        success_sigma=table[:, 3],
+        final_balance_percentiles=table[:, 4:],
+    )
+
+
+def run_scenario_grid(
+    configs: Sequence[Config],
+    working_months: Sequence[int],
+    num_simulations: int,
+    seed: int = 0,
+    chunk_size: Optional[int] = None,
+    device="cuda",
+    progress_callback: Optional[Callable[[dict], None]] = None,
+) -> ScenarioBatchResult:
+    """Serve a whole scenario grid: chunked launches + progress.
+
+    Chunks of ``chunk_size`` scenarios (default ``MCRT_GRID_CHUNK``, 16)
+    run as one launch each of the grid kernel on ``device="cuda"`` (float32;
+    raises without a card) or of its plain version on ``device="cpu"``
+    (float64). ``progress_callback`` receives a ``grid_chunk`` event
+    (``done``, ``total``, ``elapsed_s``) after each chunk is collected.
+    Shocks are shared across the WHOLE grid, so chunking preserves CRN.
+    """
+    configs = list(configs)
+    working_months = [int(m) for m in working_months]
+    if len(working_months) != len(configs):
+        raise ValueError("working_months must align with configs")
+    if not configs:
+        raise ValueError("scenario grid needs at least one config")
+    if any(m < 0 for m in working_months):
+        raise ValueError("working_months must be >= 0")
+    statics = grid_statics(configs)  # raises on mixed structure
+    check_slice(statics)  # raises NotImplementedError outside the slice
+    require_device(device)
+    device = torch.device(device)
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    R = configs[0].retirement_years
+    n = int(num_simulations)
+    if n < 1:
+        raise ValueError(f"num_simulations must be >= 1, got {n}")
+    if chunk_size is None:
+        chunk_size = int(os.environ.get("MCRT_GRID_CHUNK", "16"))
+    chunk_size = max(1, int(chunk_size))
+    # Device-memory guard: one launch holds two (k, n) float tables plus
+    # the sort's copies, so bound k x n cells per launch by shrinking the
+    # chunk. Chunking is exact under grid-wide CRN; the in-flight window
+    # below holds up to window + 1 launches live.
+    cell_budget = int(
+        os.environ.get("MCRT_GRID_CELL_BUDGET", str(256 * 1024 * 1024))
+    )
+    chunk_size = max(1, min(chunk_size, cell_budget // n))
+    window = max(0, int(os.environ.get("MCRT_GRID_WINDOW", "2")))
+    stream_seed = _grid_stream_seed(seed)
+
+    total = len(configs)
+    done = 0
+    t0 = time.perf_counter()
+    parts: List[ScenarioBatchResult] = []
+    pending: list = []  # (k, (k, 9) table on the device), oldest first
+
+    def collect_one():
+        nonlocal done
+        k, table = pending.pop(0)
+        parts.append(_from_table(table.cpu().numpy()))
+        done += k
+        if progress_callback is not None:
+            progress_callback(
+                {
+                    "type": "grid_chunk",
+                    "done": done,
+                    "total": total,
+                    "elapsed_s": round(time.perf_counter() - t0, 3),
+                }
+            )
+        log.info(
+            "phase=grid device=%s scenarios=%d/%d paths=%d: %.3f s",
+            device, done, total, n, time.perf_counter() - t0,
+        )
+
+    for i in range(0, total, chunk_size):
+        chunk_cfgs = configs[i : i + chunk_size]
+        params = stack_params(chunk_cfgs)
+        check_grid_statics(params, statics)
+        packed = pack_grid(
+            params, stream_seed, working_months[i : i + chunk_size], R,
+            dtype=dtype, device=device,
+        )
+        out = grid(packed, statics, R, n)
+        pending.append(
+            (len(chunk_cfgs),
+             _stats_table(_grid_stats(out.success, out.final_balance, n)))
+        )
+        while len(pending) > window:
+            collect_one()
+    while pending:
+        collect_one()
+    result = parts[0]
+    for part in parts[1:]:
+        result = result.concat(part)
+    return result

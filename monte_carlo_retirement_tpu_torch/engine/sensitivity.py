@@ -1,0 +1,332 @@
+"""Parameter sensitivity analysis on the port: finite differences over a
+common-random-numbers scenario grid.
+
+The finite-difference half of the JAX package's ``engine/sensitivity.py``
+(lines 49-347), with the port's imports. Every perturbed scenario (theta
++/- h for each parameter) is one row of a scenario grid
+(``engine/scenario_batch.py``), so all probes share their shocks: the +/-
+difference cancels the Monte Carlo noise common to both rows, and only
+paths whose outcome actually flips contribute. Cost: 2K+1 grid rows.
+
+``sensitivity_ad`` (``jax.jacfwd`` through the scan kernel) is not here:
+its counterpart, ``torch.func.jacfwd`` through the plain loop, is ROADMAP.md
+item A9.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from contextlib import contextmanager
+from typing import Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+
+from ..config import Config
+from .scenario_batch import ScenarioBatchResult, run_scenario_grid
+
+__all__ = [
+    "SENSITIVITY_PARAMS",
+    "DEFAULT_PARAMS",
+    "SensitivityRow",
+    "sensitivity_fd",
+]
+
+
+class ParamSpec(NamedTuple):
+    lo: float  # hard lower bound of the Config field
+    hi: float  # hard upper bound (inf = open)
+    kind: str  # "dollar": relative step; "rate": absolute step
+    scale: float  # step fallback scale for a zero-valued dollar param
+
+
+_INF = float("inf")
+
+# Every numeric scalar Config field whose perturbation keeps the compiled
+# structure fixed (same Statics, same stream shape) is eligible. Bounds
+# mirror config.py's pydantic constraints so perturbed configs re-validate.
+SENSITIVITY_PARAMS: Dict[str, ParamSpec] = {
+    "initial_balance": ParamSpec(0.0, _INF, "dollar", 10_000.0),
+    "monthly_contribution": ParamSpec(0.0, _INF, "dollar", 100.0),
+    "contribution_growth_rate_annual": ParamSpec(0.0, _INF, "rate", 0.0),
+    "monthly_expenses": ParamSpec(0.0, _INF, "dollar", 100.0),
+    "allocation_inv1_pct": ParamSpec(0.0, 1.0, "rate", 0.0),
+    # Glide endpoint: eligible only when the base config sets it (a None
+    # base cannot be perturbed — and flipping glide on/off is a Statics
+    # change); _resolve_spec enforces that.
+    "allocation_inv1_final_pct": ParamSpec(0.0, 1.0, "rate", 0.0),
+    "inv1_returns_mean": ParamSpec(-0.999, _INF, "rate", 0.0),
+    "inv1_returns_volatility": ParamSpec(0.0, _INF, "rate", 0.0),
+    "inv1_expense_ratio_annual": ParamSpec(0.0, 0.999, "rate", 0.0),
+    "inv2_expense_ratio_annual": ParamSpec(0.0, 0.999, "rate", 0.0),
+    "inv1_annual_tax_on_gains_rate": ParamSpec(0.0, 1.0, "rate", 0.0),
+    "inv1_realized_gains_tax_rate": ParamSpec(0.0, 1.0, "rate", 0.0),
+    "inv2_premium_over_inflation_mean": ParamSpec(-0.999, _INF, "rate", 0.0),
+    "inv2_premium_over_inflation_volatility": ParamSpec(0.0, _INF, "rate", 0.0),
+    "inv2_annual_tax_on_gains_rate": ParamSpec(0.0, 1.0, "rate", 0.0),
+    "inv2_realized_gains_tax_rate": ParamSpec(0.0, 1.0, "rate", 0.0),
+    "inflation_rate_mean": ParamSpec(-0.999, _INF, "rate", 0.0),
+    "inflation_rate_volatility": ParamSpec(0.0, _INF, "rate", 0.0),
+    "equity_inflation_correlation": ParamSpec(-1.0, 1.0, "rate", 0.0),
+    # Nested guardrail bands (dotted paths; percent UNITS, so they use the
+    # relative "dollar" step rule with scale 1). Probing requires the rule
+    # to be set on the base config (a None parent is rejected like any
+    # unset optional field); FD-only — the bands enter the kernel through
+    # comparisons/clamps, so forward-mode AD is not offered for them.
+    "spending_guardrails.upper_wr_pct": ParamSpec(1e-6, 100.0, "dollar", 1.0),
+    "spending_guardrails.lower_wr_pct": ParamSpec(0.0, 100.0, "dollar", 1.0),
+    "spending_guardrails.adjustment_pct": ParamSpec(1e-6, 50.0, "dollar", 1.0),
+    "spending_guardrails.floor_pct": ParamSpec(0.0, 100.0, "dollar", 1.0),
+    "spending_guardrails.cap_pct": ParamSpec(100.0, _INF, "dollar", 1.0),
+    # Market-crash parameters (dotted paths; FD-only like every dotted
+    # name — the crash indicator u < p is a step function, so forward-mode
+    # AD would see derivative 0 in the frequency anyway). Probing requires
+    # market_crashes set on the base config (flipping it on/off is a
+    # Statics / draw-structure change).
+    "market_crashes.frequency_per_year": ParamSpec(0.0, 12.0, "dollar", 0.1),
+    "market_crashes.mean_drop_pct": ParamSpec(1e-6, 99.99, "dollar", 1.0),
+    "market_crashes.size_volatility": ParamSpec(0.0, 2.0, "rate", 0.0),
+    "market_crashes.inv2_beta": ParamSpec(0.0, 1.0, "rate", 0.0),
+    # Longevity parameters (dotted paths; FD-only like every dotted name —
+    # the lifespan enters the kernel through month comparisons). Probing
+    # requires longevity set on the base config (flipping it on/off is a
+    # Statics / draw-structure change). Ages are years, so the relative
+    # "dollar" step rule with scale 1 applies.
+    "longevity.mode_age": ParamSpec(1e-6, 120.0, "dollar", 1.0),
+    "longevity.dispersion_years": ParamSpec(1.0, 30.0, "dollar", 1.0),
+    "longevity.max_age": ParamSpec(1e-6, 130.0, "dollar", 1.0),
+}
+
+
+def get_field(dump: dict, name: str):
+    """Read a (possibly dotted) config field from a model_dump dict; None
+    when the field or any parent is unset."""
+    obj = dump
+    for part in name.split("."):
+        if not isinstance(obj, dict) or part not in obj:
+            return None
+        obj = obj[part]
+    return obj
+
+
+def with_field(dump: dict, name: str, value) -> dict:
+    """A copy of ``dump`` with a (possibly dotted) field replaced."""
+    head, _, rest = name.partition(".")
+    if not rest:
+        return {**dump, head: value}
+    sub = dump.get(head)
+    if not isinstance(sub, dict):
+        raise ValueError(
+            f"Cannot set '{name}': parent '{head}' is unset on the base "
+            "config."
+        )
+    return {**dump, head: with_field(sub, rest, value)}
+
+# The decision-relevant default set (the dashboard's tornado view).
+DEFAULT_PARAMS: List[str] = [
+    "monthly_expenses",
+    "monthly_contribution",
+    "initial_balance",
+    "allocation_inv1_pct",
+    "inv1_returns_mean",
+    "inv1_returns_volatility",
+    "inflation_rate_mean",
+    "equity_inflation_correlation",
+]
+
+
+class SensitivityRow(NamedTuple):
+    """One parameter's finite-difference sensitivities."""
+
+    param: str
+    base_value: float
+    step_plus: float  # 0.0 when the upper bound pinned a one-sided probe
+    step_minus: float
+    success_base: float  # percent
+    success_plus: float
+    success_minus: float
+    d_success: float  # d success% / d param (per unit)
+    d_median_final: float
+    d_mean_final: float
+    d_p5_final: float  # downside: d (5th-pct final balance) / d param
+    success_per_step: float  # success% change over one practical step
+    practical_step: float  # 1% of value (dollar) / the abs step (rate)
+    success_sigma: float  # per-row binomial MC sigma (CRN bound is tighter)
+
+
+def _steps(value: float, spec: ParamSpec, rel_step: float, abs_step: float):
+    """(h_plus, h_minus) clamped into the field's bounds; either may be 0
+    (one-sided probe at a boundary)."""
+    if spec.kind == "dollar":
+        h = rel_step * max(abs(value), spec.scale)
+    else:
+        h = abs_step
+    h_plus = min(h, spec.hi - value)
+    h_minus = min(h, value - spec.lo)
+    return max(h_plus, 0.0), max(h_minus, 0.0)
+
+
+def _practical_step(value: float, spec: ParamSpec, abs_step: float) -> float:
+    if spec.kind == "dollar":
+        return 0.01 * max(abs(value), spec.scale)
+    return abs_step
+
+
+_quiet_lock = threading.Lock()
+_quiet_depth = 0
+_quiet_prev = logging.NOTSET
+
+
+@contextmanager
+def _quiet_config_warnings():
+    """Suppress the config soft-warning validators while building probe
+    variants: the BASE config already surfaced them once; repeating them for
+    every theta +/- h copy is pure noise. Reference-counted under a lock so
+    overlapping server requests restore the original level exactly once
+    (naive save/restore could pin the logger at ERROR forever)."""
+    global _quiet_depth, _quiet_prev
+    cfg_log = logging.getLogger("mcrt.config")
+    with _quiet_lock:
+        if _quiet_depth == 0:
+            _quiet_prev = cfg_log.level
+            cfg_log.setLevel(logging.ERROR)
+        _quiet_depth += 1
+    try:
+        yield
+    finally:
+        with _quiet_lock:
+            _quiet_depth -= 1
+            if _quiet_depth == 0:
+                cfg_log.setLevel(_quiet_prev)
+
+
+def validate_params(params: Optional[Sequence[str]]) -> List[str]:
+    names = list(params) if params else list(DEFAULT_PARAMS)
+    unknown = [p for p in names if p not in SENSITIVITY_PARAMS]
+    if unknown:
+        raise ValueError(
+            f"Unknown sensitivity parameters {unknown}; supported: "
+            f"{sorted(SENSITIVITY_PARAMS)}"
+        )
+    if len(set(names)) != len(names):
+        raise ValueError("Duplicate sensitivity parameters in request.")
+    return names
+
+
+def sensitivity_fd(
+    config: Config,
+    working_months: int,
+    num_paths: Optional[int] = None,
+    seed: int = 0,
+    params: Optional[Sequence[str]] = None,
+    rel_step: float = 0.02,
+    abs_step: float = 0.005,
+    device="cuda",
+    progress_callback=None,
+) -> List[SensitivityRow]:
+    """Central finite differences over a CRN scenario grid on ``device``.
+
+    One grid request of ``1 + 2K`` rows (base + theta +/- h per parameter;
+    boundary-pinned parameters probe one-sided). Derivatives use the actual
+    realized steps: ``(f(v + h+) - f(v - h-)) / (h+ + h-)``.
+    """
+    names = validate_params(params)
+    base_dump = config.model_dump()
+    base_dump.pop("allocation_inv2_pct", None)  # derived property
+    n = int(num_paths or config.num_simulations_main)
+
+    variants: List[Config] = [config]
+    slots: List[tuple] = []  # (name, plus_idx|-1, minus_idx|-1, h+, h-)
+    with _quiet_config_warnings():
+        for name in names:
+            spec = SENSITIVITY_PARAMS[name]
+            raw = get_field(base_dump, name)
+            if raw is None:
+                raise ValueError(
+                    f"Parameter '{name}' is unset (null) in the base config; "
+                    "set a base value to probe it (turning an optional "
+                    "feature on changes the compiled structure)."
+                )
+            v = float(raw)
+            h_plus, h_minus = _steps(v, spec, rel_step, abs_step)
+
+            def _variant(val):
+                # Cross-field constraints (e.g. guardrail lower < upper) can
+                # reject a probe the per-field bounds allow; degrade that
+                # side to a one-sided probe instead of failing the request.
+                # Only validation failures degrade — anything else (a
+                # renamed field, a type bug) must surface, not silently
+                # halve the derivative's accuracy.
+                from pydantic import ValidationError
+
+                try:
+                    return Config(**with_field(base_dump, name, val))
+                except ValidationError:
+                    return None
+
+            plus_cfg = _variant(v + h_plus) if h_plus > 0.0 else None
+            minus_cfg = _variant(v - h_minus) if h_minus > 0.0 else None
+            if plus_cfg is None:
+                h_plus = 0.0
+            if minus_cfg is None:
+                h_minus = 0.0
+            if h_plus + h_minus <= 0.0:
+                raise ValueError(
+                    f"Parameter '{name}' has a degenerate bound interval; "
+                    "cannot probe it."
+                )
+            plus_idx = minus_idx = -1
+            if plus_cfg is not None:
+                plus_idx = len(variants)
+                variants.append(plus_cfg)
+            if minus_cfg is not None:
+                minus_idx = len(variants)
+                variants.append(minus_cfg)
+            slots.append((name, plus_idx, minus_idx, h_plus, h_minus))
+
+    res: ScenarioBatchResult = run_scenario_grid(
+        variants,
+        [int(working_months)] * len(variants),
+        n,
+        seed=seed,
+        device=device,
+        progress_callback=progress_callback,
+    )
+
+    p = np.asarray(res.success_probability, dtype=float)
+    med = np.asarray(res.median_final_balance, dtype=float)
+    mean = np.asarray(res.mean_final_balance, dtype=float)
+    p5 = np.asarray(res.final_balance_percentiles[:, 0], dtype=float)
+    sig = np.asarray(res.success_sigma, dtype=float)
+
+    rows: List[SensitivityRow] = []
+    for name, plus_idx, minus_idx, h_plus, h_minus in slots:
+        spec = SENSITIVITY_PARAMS[name]
+        v = float(get_field(base_dump, name))
+        ip = plus_idx if plus_idx >= 0 else 0  # boundary: base IS the probe
+        im = minus_idx if minus_idx >= 0 else 0
+        h = h_plus + h_minus
+        d_succ = (p[ip] - p[im]) / h
+        d_med = (med[ip] - med[im]) / h
+        d_mean = (mean[ip] - mean[im]) / h
+        d_p5 = (p5[ip] - p5[im]) / h
+        step = _practical_step(v, spec, abs_step)
+        rows.append(
+            SensitivityRow(
+                param=name,
+                base_value=v,
+                step_plus=h_plus,
+                step_minus=h_minus,
+                success_base=float(p[0]),
+                success_plus=float(p[ip]),
+                success_minus=float(p[im]),
+                d_success=float(d_succ),
+                d_median_final=float(d_med),
+                d_mean_final=float(d_mean),
+                d_p5_final=float(d_p5),
+                success_per_step=float(d_succ * step),
+                practical_step=float(step),
+                success_sigma=float(sig[0]),
+            )
+        )
+    return rows

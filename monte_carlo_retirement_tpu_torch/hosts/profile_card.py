@@ -8,8 +8,11 @@ On one CUDA card, with config.json (seed 2026):
     probe, the full kernel alone, and the full kernel plus ``summarize``, at
     1M paths x 600 months (retirement_years=50, W=0; the scenario of
     chip_smoke.py phase 6);
-  * ``torch.profiler`` tables of full + summarize at that size and of the
-    main path (search, then final run) at 1M search + 1M final paths, each
+  * the same spread for one 16-row chunk of the 16 x 16 scenario grid
+    (expenses 4,000-14,000 x equity mean 0.06-0.14, W=231, R=50, 1M paths);
+  * ``torch.profiler`` tables of full + summarize at that size, of the
+    main path (search, then final run) at 1M search + 1M final paths and of
+    the whole 256-variant x 1M grid through ``run_scenario_grid``, each
     with its wall time, the card's busy time (the sum of device-side events)
     and the idle share 1 - busy / wall.
 
@@ -19,11 +22,13 @@ Run it from the repository root (it reads ``config.json`` there).
 from __future__ import annotations
 
 import json
+import logging
 import subprocess
 import time
 
 N_PATHS = 1_000_000
 SEED = 2026
+GRID_W = 231
 
 
 def _config(**overrides):
@@ -34,6 +39,17 @@ def _config(**overrides):
     raw["seed"] = SEED
     raw.update(overrides)
     return Config(**raw)
+
+
+def _grid_configs():
+    """The 256 variants of the 16 x 16 grid, expenses-major."""
+    import numpy as np
+
+    return [
+        _config(monthly_expenses=float(e), inv1_returns_mean=float(m))
+        for e in np.linspace(4_000, 14_000, 16)
+        for m in np.linspace(0.06, 0.14, 16)
+    ]
 
 
 def _spread(fn, runs=10):
@@ -121,6 +137,29 @@ def main() -> int:
     ck.reset_counts()
     _trace("main path, 1M search + 1M final paths", main_path)
     print(f"main path: {months} months, {n_cand} candidates; launches {ck.LAUNCHES}")
+
+    from ..engine.scenario_batch import grid_statics, run_scenario_grid
+    from ..models.retirement import stack_params
+
+    logging.getLogger("mcrt.config").setLevel(logging.ERROR)  # 256 warnings
+    configs = _grid_configs()
+    chunk = configs[10 * 16:11 * 16]
+    statics = grid_statics(chunk)
+    GR = chunk[0].retirement_years
+    packed = ck.pack_grid(stack_params(chunk), SEED, [GRID_W] * 16, GR,
+                          device="cuda")
+    ts = _spread(lambda: ck.grid(packed, statics, GR, n))
+    print(f"grid chunk: min {ts[0]:.3f} median {(ts[4] + ts[5]) / 2:.3f} "
+          f"max {ts[-1]:.3f} ms (10 runs, 16 x 1M x {GRID_W + 12 * GR})")
+
+    def grid():
+        return run_scenario_grid(configs, [GRID_W] * len(configs), n,
+                                 seed=SEED, device="cuda")
+
+    grid()  # warm
+    ck.reset_counts()
+    _trace(f"256-variant x 1M scenario grid, W={GRID_W}, R={GR}", grid)
+    print(f"scenario grid: launches {ck.LAUNCHES}")
     return 0
 
 

@@ -6,14 +6,16 @@ Same model and the same numbers as the JAX package's
 are pruned by one shared predicate so the kernel's stream table and its
 compile-time flags line up. ``SimParams`` is a dataclass of 0-d / (S,)
 tensors in the JAX ``SimParams`` field order, so either package's
-parameters convert into the other's leaf by leaf (``from_jax``).
+parameters convert into the other's leaf by leaf (``from_jax``). A scenario
+batch (``stack_params``) is the same dataclass with a leading scenario axis
+on every leaf: (K,) scalars and (K, S) stream tables.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -101,7 +103,7 @@ class SimParams:
 
     @property
     def n_streams(self) -> int:
-        return int(self.stream_amount.shape[0])
+        return int(self.stream_amount.shape[-1])
 
     @classmethod
     def field_names(cls) -> Tuple[str, ...]:
@@ -121,7 +123,9 @@ class SimParams:
 
         ``leaves`` is a JAX ``SimParams`` (or its ``host_leaves``) whose
         leaves convert with ``np.asarray``, or any sequence of arrays in the
-        same field order."""
+        same field order. A stacked batch (the JAX ``stack_params``: numpy
+        leaves with a leading scenario axis) converts the same way into the
+        port's stacked form, leaf shapes kept."""
         names = cls.field_names()
         if hasattr(leaves, "_fields"):
             arrays = {n: np.asarray(getattr(leaves, n)) for n in names}
@@ -146,6 +150,36 @@ class SimParams:
                     a.astype(np.float64), dtype=dtype, device=device
                 )
         return cls(**out)
+
+
+def stack_params(configs: Sequence[Config], dtype=torch.float64,
+                 device="cpu") -> SimParams:
+    """Stack per-config parameters into one batch with a leading scenario
+    axis (the JAX ``engine/scenario_batch.py::stack_params``, same checks
+    and messages). The host math runs in float64 numpy, so stacking K
+    configs costs one tensor per leaf, not K."""
+    if not configs:
+        raise ValueError("scenario batch needs at least one config")
+    r_years = {c.retirement_years for c in configs}
+    if len(r_years) != 1:
+        raise ValueError(
+            f"all configs must share retirement_years, got {sorted(r_years)}"
+        )
+    per_config = [_host_leaves(c) for c in configs]
+    # Validate on the PRUNED stream count: the raw config counts can match
+    # while the stacked table shapes do not.
+    n_streams = {len(p["stream_amount"]) for p in per_config}
+    if len(n_streams) != 1:
+        raise ValueError(
+            "all configs must have the same number of effective income "
+            "streams after pruning zero-amount/zero-duration ones, got "
+            f"counts {sorted(n_streams)}"
+        )
+    stacked = {
+        name: np.stack([p[name] for p in per_config])
+        for name in SimParams.field_names()
+    }
+    return SimParams._from_arrays(stacked, dtype, device)
 
 
 def _host_leaves(config: Config) -> dict:

@@ -29,9 +29,10 @@ def fail_rtol(dtype) -> float:
     return 2e-5 if dtype == torch.float32 else 0.0
 
 
-def profile(b: Tensor, c: Tensor, use: bool, rate: float):
+def profile(b: Tensor, c: Tensor, use: bool, rate):
     """Sale profile of one asset: (eff, nf, nc) = tax per gross dollar, net
-    per gross dollar and full-liquidation net capacity."""
+    per gross dollar and full-liquidation net capacity. ``rate`` is a float
+    or a tensor that broadcasts against ``b`` (one rate per scenario row)."""
     live = b > EPS
     if not use:
         return (
@@ -47,11 +48,14 @@ def profile(b: Tensor, c: Tensor, use: bool, rate: float):
     return eff, nf, nc
 
 
-def rebalance_lite(b1, c1, b2, c2, eff1, eff2, a1: float, extra_noop=None):
-    """Tax-aware rebalance toward target ``a1`` whose post-tax weights are
-    exact: the over-weight side sells gross x with x = |drift| / (1 -
-    alloc_s * eff_s); the buyer's basis grows by the net purchase only."""
+def rebalance_lite(b1, c1, b2, c2, eff1, eff2, a1, extra_noop=None):
+    """Tax-aware rebalance toward target ``a1`` (a float, or a tensor that
+    broadcasts against the balances: one target per scenario row) whose
+    post-tax weights are exact: the over-weight side sells gross x with
+    x = |drift| / (1 - alloc_s * eff_s); the buyer's basis grows by the net
+    purchase only."""
     total = b1 + b2
+    a1 = torch.as_tensor(a1, dtype=total.dtype, device=total.device)
     drift1 = b1 - total * a1
     adrift = drift1.abs()
     sell1 = drift1 > 0
@@ -61,9 +65,7 @@ def rebalance_lite(b1, c1, b2, c2, eff1, eff2, a1: float, extra_noop=None):
     bal_s = torch.where(sell1, b1, b2)
     basis_s = torch.where(sell1, c1, c2)
     eff_s = torch.where(sell1, eff1, eff2)
-    alloc_s = torch.where(
-        sell1, torch.full_like(total, a1), torch.full_like(total, 1.0 - a1)
-    )
+    alloc_s = torch.where(sell1, a1, 1.0 - a1)
     denom = torch.clamp(1.0 - alloc_s * eff_s, min=EPS)
     gross_s = torch.minimum(bal_s, adrift / denom)
     frac_s = gross_s / torch.where(bal_s > EPS, bal_s, 1.0)

@@ -131,12 +131,20 @@ def test_port_never_imports_jax():
         "from monte_carlo_retirement_tpu_torch.config import Config\n"
         "from monte_carlo_retirement_tpu_torch.engine.simulator import "
         "RetirementMonteCarloSimulator\n"
-        "from monte_carlo_retirement_tpu_torch.hosts import cli, plotting\n"
+        "from monte_carlo_retirement_tpu_torch.hosts import (\n"
+        "    cli, grid, optimize, plotting, sensitivity)\n"
+        "from monte_carlo_retirement_tpu_torch.engine import (\n"
+        "    optimize as opt, scenario_batch, sensitivity as sens)\n"
         f"cfg = Config(**{TINY!r})\n"
         "sim = RetirementMonteCarloSimulator(cfg, device='cpu')\n"
         "m, p, _ = sim.find_minimum_working_months(verbose=False)\n"
         "sim.use_final_seeds()\n"
         "sim.run_monte_carlo_simulations(max(m, 0), 256)\n"
+        "scenario_batch.run_scenario_grid([cfg, cfg], [0, 6], 128, device='cpu')\n"
+        "sens.sensitivity_fd(cfg, 6, num_paths=64, params=['monthly_expenses'],"
+        " device='cpu')\n"
+        "opt.optimize_param(cfg, 6, 'allocation_inv1_pct', num_paths=64,"
+        " points=3, rounds=1, device='cpu')\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
         "or k == 'monte_carlo_retirement_tpu' "
         "or k.startswith('monte_carlo_retirement_tpu.')]\n"

@@ -110,7 +110,7 @@ def test_statics_and_packing_equal_pallas(name):
     assert packed.ip.dtype == torch.int32 and packed.fp.dtype == torch.float32
     np.testing.assert_allclose(packed.fp[: ck.F.NUM].numpy(), np.asarray(fp),
                                rtol=1.2e-7, atol=0)
-    streams = ck.unpack_streams(packed)
+    streams = packed.fp[ck.F.NUM:].reshape(5, packed.n_streams).tolist()
     assert len(streams) == 5 and len(inputs) in (0, 5)
     for got, want in zip(streams, inputs):
         np.testing.assert_array_equal(np.float32(got), np.asarray(want))
