@@ -6,9 +6,13 @@
 Phases (any failure raises; the script then exits non-zero and prints no
 result):
   1. the card (nvidia-smi name and power limit), and the kernels built with
-     nvcc from engine/csrc into build/torch_kernels/;
-  2. the device Philox words/normals vs ops/shocks.py in torch on the card:
-     words equal, normals within 2e-6 relative;
+     nvcc from engine/csrc into build/torch_kernels/: one month-loop library
+     per Statics the run uses (config.json's, each extension alone, all
+     extensions together) and the stream check, one nvcc each, all started
+     together; each library's registers and spills per kernel (ptxas);
+  2. the device draws vs ops/shocks.py in torch on the card: the month,
+     crash and longevity Philox words equal, the crash and longevity
+     uniforms equal, the normals within 2e-6 relative;
   3. probe_kernel vs probe_plain on the card (config.json, 16 candidates
      over 0-480 months, 65,536 paths, one seed so one stream): per-candidate
      success within 0.3 points, per-path flags mismatching below 3e-3, and
@@ -16,10 +20,11 @@ result):
   4. full_kernel vs simulate_full_plain at W=234, 65,536 paths, with the
      bounds the JAX suite holds Pallas to (tests/test_pallas_parity.py);
   5. the main path through RetirementMonteCarloSimulator(device="cuda"):
-     search, final seeds, final run — at config.json's own sizes and at
-     1M search and 1M final paths — with the launch counters checked and
-     the success at the found month >= target - 150/sqrt(n); after each
-     run, the checks of phases 3 and 4 again at that run's shapes (16
+     search, final seeds, final run — at config.json's own sizes, at 1M
+     search and 1M final paths, and at 1M/1M with every extension on (the
+     all-on config below) — with the launch counters checked and the
+     success at the found month >= target - 150/sqrt(n); after each run,
+     the checks of phases 3 and 4 again at that run's shapes (16
      candidates around the found month at the search's path count, the
      full kernel at the found month at the final path count), so partial
      4096-path blocks and padding lanes are held to the plain versions;
@@ -27,10 +32,13 @@ result):
      events, warm, min of 5: one 16-candidate probe, the full kernel
      alone, and the full kernel plus summarize — kernel and plain version;
      simulate (the grid kernel's one-row launch) and simulate_plain there;
-     one 16-row chunk of the 16 x 16 scenario grid (config.json, expenses
-     4,000-14,000 x equity mean 0.06-0.14, W=231, R=50, 1M paths): the grid
-     kernel alone, its plain version, the chunk's statistics; and the wall
-     time of the whole 256-variant x 1M grid through run_scenario_grid;
+     the probe and the full kernel again under the all-on Statics beside
+     their plain versions (one cold call each), and the probe with each
+     extension alone (min of 2); one 16-row chunk of the 16 x 16
+     scenario grid (config.json, expenses 4,000-14,000 x equity mean
+     0.06-0.14, W=231, R=50, 1M paths): the grid kernel alone, its plain
+     version, the chunk's statistics; and the wall time of the whole
+     256-variant x 1M grid through run_scenario_grid;
   7. grid_kernel vs grid_plain on the card: that 16-row chunk at 1M paths
      and a ragged 3 rows x 1,000 paths — per-row success within
      max(0.3, 100/n) points, flags mismatching below 3e-3, the kernel's
@@ -43,8 +51,20 @@ result):
      default parameters at 1M paths and W=231 (d success < 0 for expenses,
      > 0 for the initial balance), a 1-D optimize of allocation_inv1_pct
      over 0.3-0.9 (17 points x 3 rounds: 51 evaluations, best inside its
-     bracket); then bench.py's workload through simulate (one launch, held
-     to simulate_plain and to the probe kernel's flags at W=0).
+     bracket), the all-on sensitivity at 1M paths and phase 5's all-on
+     month over the crash frequency, the longevity mode age, the upper
+     guardrail and the annual tax rate (d success < 0 for the first two
+     and the tax rate); then bench.py's workload through simulate (one
+     launch, held to simulate_plain and to the probe kernel's flags at W=0);
+  9. the extensions on the card, each alone and all together (config.json
+     plus EXTENSIONS below, R = 20): probe_kernel, grid_kernel (3 ragged
+     rows) and full_kernel against their plain versions at 65,536 paths with the
+     bounds of phases 3, 4 and 7 (with guardrails, fewer than 1e-3 of the
+     withdrawal-rate entries may differ: a path at a band edge takes the
+     other branch in one version); rule-off bit-identity (the parameters of
+     every disabled feature poisoned: probe and full kernel outputs
+     bit-equal); antithetic pairing (the even blocks of an antithetic
+     probe bit-equal to an iid probe's blocks, the odd ones not).
 
 The kernels' lines come before the last two: {"kernels": [...]}, then the
 card's name and power limit on their own line; the last line is
@@ -66,6 +86,11 @@ PKG = "monte_carlo_retirement_tpu_torch"
 CU_SOURCE = f"{PKG}/engine/csrc/month_loop.cu"
 SEED = 2026
 N_CHECK = 65_536
+# Phase 9's retirement length: the plain versions on the card are
+# launch-bound, one month at a time, so 20 years (every rule still binds;
+# the all-on config runs 50 years at 1M paths in phase 5) keeps the phase
+# short.
+EXT_R = 20
 N_FULL = 1_000_000
 GRID_W = 231
 GRID_SIDE = 16  # the 16 x 16 grid of scripts/scenario_grid_demo.py
@@ -76,6 +101,47 @@ NORMAL_RTOL = 2e-6
 FIELD_RTOL = 5e-3  # the JAX suite's q999 bound: < 1e-3 of entries beyond it
 PATH_SHARE = 1e-3  # share of paths whose flag / ruin month / NaN may differ
 ONE_MONTH_YEARS = 1.0 / 12.0
+CRASHES = {"frequency_per_year": 0.2, "mean_drop_pct": 25.0,
+           "size_volatility": 0.1, "inv2_beta": 0.3}
+LONGEVITY = {"mode_age": 88.0, "dispersion_years": 10.0, "max_age": 110.0}
+GUARDRAILS = {"upper_wr_pct": 6.0, "lower_wr_pct": 3.0}
+# config.json plus one extension each (config.json's rental stream, given a
+# rent: fixed-nominal, capped at 35 years, or both), and all together.
+EXTENSIONS = {
+    "bills": dict(inv1_use_realized_gains_tax_system=False,
+                  inv1_annual_tax_on_gains_rate=0.15),
+    "fixed": dict(rental=dict(inflation_indexed=False, duration_years=None)),
+    "capped": dict(rental=dict(inflation_indexed=True, duration_years=35)),
+    "antithetic": dict(antithetic=True),
+    "glide": dict(allocation_inv1_final_pct=0.4),
+    "guardrails": dict(spending_guardrails=GUARDRAILS),
+    "jumps": dict(market_crashes=CRASHES),
+    "mortality": dict(longevity=LONGEVITY),
+    # six streams of all four kinds, beyond the first slice's cap of four
+    "streams": dict(rental=dict(inflation_indexed=False, duration_years=35),
+                    more_streams=[
+                        {"name": "Annuity", "monthly_amount_today": 800.0,
+                         "start_at_age": 60.0, "duration_years": None,
+                         "inflation_indexed": False, "tax_rate": 0.15},
+                        {"name": "Consulting", "monthly_amount_today": 2000.0,
+                         "start_at_age": 58.0, "duration_years": 5,
+                         "inflation_indexed": True, "tax_rate": 0.3},
+                        {"name": "Royalties", "monthly_amount_today": 300.0,
+                         "start_at_age": 50.0, "duration_years": None,
+                         "inflation_indexed": True, "tax_rate": 0.2},
+                        {"name": "Loan repaid", "monthly_amount_today": 500.0,
+                         "start_at_age": 55.0, "duration_years": 10,
+                         "inflation_indexed": False, "tax_rate": 0.0}]),
+}
+ALL_ON = dict(
+    inv1_use_realized_gains_tax_system=False, inv1_annual_tax_on_gains_rate=0.15,
+    rental=dict(inflation_indexed=False, duration_years=35),
+    antithetic=True, allocation_inv1_final_pct=0.4,
+    spending_guardrails=GUARDRAILS, market_crashes=CRASHES, longevity=LONGEVITY,
+)
+ALL_ON_SENSITIVITY = ("market_crashes.frequency_per_year", "longevity.mode_age",
+                      "spending_guardrails.upper_wr_pct",
+                      "inv1_annual_tax_on_gains_rate")
 
 
 def _card_line() -> str:
@@ -86,14 +152,38 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _config(**overrides):
-    from monte_carlo_retirement_tpu_torch.config import Config
-
+def _raw_config(**overrides):
+    """config.json (seed 2026) with ``overrides``; ``rental`` gives the
+    rental stream a rent of 1,500/month and the stream fields it holds,
+    ``more_streams`` appends streams."""
     with open(os.path.join(REPO, "config.json"), encoding="utf-8") as fh:
         raw = json.load(fh)
     raw["seed"] = SEED
+    rental = overrides.pop("rental", None)
+    if rental is not None:
+        raw["other_income_streams"][1].update(monthly_amount_today=1500.0,
+                                              **rental)
+    raw["other_income_streams"] += overrides.pop("more_streams", [])
     raw.update(overrides)
-    return Config(**raw)
+    return raw
+
+
+def _config(**overrides):
+    from monte_carlo_retirement_tpu_torch.config import Config
+
+    return Config(**_raw_config(**overrides))
+
+
+def _run_statics():
+    """Every Statics this run launches: config.json's, each extension
+    alone, all together."""
+    from monte_carlo_retirement_tpu_torch.engine.cuda_kernel import (
+        statics_from_config,
+    )
+
+    configs = [_config()] + [_config(**dict(over)) for over in EXTENSIONS.values()]
+    configs.append(_config(**dict(ALL_ON)))
+    return list(dict.fromkeys(statics_from_config(c) for c in configs))
 
 
 def _few(bad: int, total: int, share: float = PATH_SHARE) -> bool:
@@ -128,11 +218,13 @@ def _grid_chunk_configs():
             for over in _grid_overrides()[start:start + GRID_SIDE]]
 
 
-def _time_ms(fn, repeats=5):
-    """Warm once, then the min over ``repeats`` CUDA-event-timed calls."""
+def _time_ms(fn, repeats=5, warm=True):
+    """Warm once (unless ``warm`` is False), then the min over ``repeats``
+    CUDA-event-timed calls."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     best = math.inf
     for _ in range(repeats):
@@ -146,6 +238,38 @@ def _time_ms(fn, repeats=5):
     return best
 
 
+def _ptxas_summary(log: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from a
+    build log of nvcc -Xptxas -v."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((k for k in ("probe_kernel", "grid_kernel", "full_kernel",
+                                     "normals_kernel") if k in m.group(1)),
+                        m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = [None, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _statics_label(st) -> str:
+    on = [f for f in ("antithetic", "glide", "guardrails", "jumps", "mortality")
+          if getattr(st, f)]
+    on += ["bill1"] * st.bill1 + ["bill2"] * st.bill2
+    kinds = "".join("i" if i else "f" for i in st.stream_indexed)
+    caps = "".join("c" if c else "-" for c in st.stream_capped)
+    return (f"real=({int(st.use_real1)},{int(st.use_real2)}) streams={kinds or '-'}"
+            f"/{caps or '-'} {'+'.join(on) or 'no extensions'}")
+
+
 def phase_build(report):
     import torch
     from monte_carlo_retirement_tpu_torch.engine import _build
@@ -153,24 +277,29 @@ def phase_build(report):
     report["card"] = _card_line()
     print(f"[1] card: {report['card']} | torch: {torch.cuda.get_device_name(0)}"
           f" | torch {torch.__version__} cuda {torch.version.cuda}")
+    statics = _run_statics()
     t0 = time.perf_counter()
-    so = _build.build()
+    paths = _build.build_many(statics + [None])
+    for st in statics:
+        _build.load(st)
     _build.load()
     took = time.perf_counter() - t0
-    print(f"[1] kernels built from {CU_SOURCE} -> {os.path.relpath(so, REPO)} "
-          f"in {took:.1f} s")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[1] ptxas: {line.strip()}")
+    print(f"[1] {len(paths)} libraries built from {os.path.dirname(CU_SOURCE)} "
+          f"(one nvcc each, started together) into "
+          f"{os.path.relpath(os.path.dirname(paths[0]), REPO)} in {took:.1f} s")
+    report["ptxas"] = {}
+    for st, so in zip(statics + [None], paths):
+        label = "stream check" if st is None else _statics_label(st)
+        summary = _ptxas_summary(_build.build_log(st))
+        report["ptxas"][label] = summary
+        print(f"[1] {os.path.basename(so)}: {label}: " + ", ".join(
+            f"{k} {r} regs, spills {a}/{b} B" for k, (r, a, b) in summary.items()))
 
 
 def phase_normals(report):
     import torch
-    from monte_carlo_retirement_tpu_torch.engine.cuda_kernel import device_normals
-    from monte_carlo_retirement_tpu_torch.ops.shocks import (
-        bits_to_normal,
-        philox4x32_10,
-    )
+    from monte_carlo_retirement_tpu_torch.engine.cuda_kernel import device_draws
+    from monte_carlo_retirement_tpu_torch.ops import shocks
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     n = 1 << 20
@@ -186,17 +315,29 @@ def phase_normals(report):
     seed, block, month, lane = (
         torch.cat([a, e]) for a, e in zip((seed, block, month, lane), edges)
     )
-    words_d, z_d = device_normals(seed, block, month, lane)
-    words_t = torch.stack(philox4x32_10(month, lane, 0, 0, seed, block))
-    z_t = torch.stack([bits_to_normal(w) for w in words_t[:3]])
+    words_d, vals_d = device_draws(seed, block, month, lane)
+    main = shocks.philox4x32_10(month, lane, 0, 0, seed, block)
+    crash = shocks.philox4x32_10(month, lane, shocks.CRASH_COUNTER, 0, seed,
+                                 block)[0]
+    mort = shocks.philox4x32_10(0, lane, shocks.MORT_COUNTER, 0,
+                                seed ^ shocks.MORT_SALT, block)[0]
+    words_t = torch.stack(list(main) + [crash, mort])
+    normals_t = torch.stack([shocks.bits_to_normal(w) for w in
+                             (main[0], main[1], main[2], crash)])
+    uniforms_t = torch.stack([shocks.bits_to_uniform(w) for w in (main[3], mort)])
     torch.cuda.synchronize()
     if not torch.equal(words_d, words_t):
         bad = int((words_d != words_t).sum())
         raise AssertionError(f"device Philox words differ from torch in {bad} places")
-    rel = ((z_d - z_t).abs() / z_t.abs().clamp_min(1e-30)).max().item()
-    exact = float((z_d == z_t).float().mean())
-    print(f"[2] Philox words equal on {words_d.numel():,} words; normals max rel "
-          f"err {rel:.3e} (bound {NORMAL_RTOL:g}), bit-equal share {exact:.6f}")
+    if not torch.equal(vals_d[[3, 5]], uniforms_t):
+        raise AssertionError("device crash/longevity uniforms differ from torch")
+    z_d = vals_d[[0, 1, 2, 4]]
+    rel = ((z_d - normals_t).abs() / normals_t.abs().clamp_min(1e-30)).max().item()
+    exact = float((z_d == normals_t).float().mean())
+    print(f"[2] Philox words equal on {words_d.numel():,} words (month draw, "
+          f"crash normal, longevity); crash and longevity uniforms bit-equal; "
+          f"normals max rel err {rel:.3e} (bound {NORMAL_RTOL:g}), bit-equal "
+          f"share {exact:.6f}")
     if not rel <= NORMAL_RTOL:
         raise AssertionError(f"normals differ by {rel:.3e} relative")
     report["normals_max_rel"] = rel
@@ -334,13 +475,20 @@ def check_full(report, tag, eng, W, n):
           + ", ".join(f"{nm} {b}/{t} {m:.2e}" for nm, (b, t, m) in fields.items()))
     print(f"[{tag}]   years_to_ruin NaN flips {nan_flips}, ruin months moved "
           f"{ytr_moved}, max abs err {ytr_err:.4e} y (bound 1/12 y + 1e-5)")
+    # Guardrails cut or raise spending when the year-start WR crosses a
+    # band: a path within round-off of a band takes the other branch in one
+    # version and spends gr_adj more or less from then on, so its later WR
+    # entries differ by percents. Those paths are few; without guardrails
+    # every entry must agree.
+    wr_ok = _few(wr_bad, wr_k.numel()) if eng.statics.guardrails else wr_bad == 0
     print(f"[{tag}]   WR NaN flips {wr_nan}, max abs err {wr_err:.3e} pts, "
-          f"{wr_bad} entries beyond rtol {FIELD_RTOL:g}")
+          f"{wr_bad} entries beyond rtol {FIELD_RTOL:g} (bound "
+          f"{'< 1e-3 of them' if eng.statics.guardrails else 'none'})")
     if not (_few(flips, n)
             and all(_few(b, t) for b, t, _ in fields.values())
             and _few(nan_flips, n) and _few(ytr_moved, n)
             and ytr_err <= ONE_MONTH_YEARS + 1e-5
-            and _few(wr_nan, wr_k.numel()) and wr_bad == 0):
+            and _few(wr_nan, wr_k.numel()) and wr_ok):
         raise AssertionError(f"[{tag}] full kernel disagrees with its plain version")
     report["full_err"] = max(report.get("full_err", 0.0), wr_err)
 
@@ -369,11 +517,13 @@ def phase_main_path(report):
     from monte_carlo_retirement_tpu_torch.timing import expected_trajectory_length
 
     launches = {"probe": 0, "full": 0}
-    for label, n_search, n_final in (("a", None, None),
-                                     ("b", 1_000_000, 1_000_000)):
-        over = {}
+    for label, n_search, n_final, extensions in (
+            ("a", None, None, {}),
+            ("b", 1_000_000, 1_000_000, {}),
+            ("c", 1_000_000, 1_000_000, ALL_ON)):
+        over = dict(extensions)
         if n_search:
-            over = dict(num_simulations_search=n_search,
+            over.update(num_simulations_search=n_search,
                         num_simulations_main=n_final)
         cfg = _config(**over)
         ck.reset_counts()
@@ -400,7 +550,10 @@ def phase_main_path(report):
         n = cfg.num_simulations_main
         margin = 150.0 / math.sqrt(n)
         L = expected_trajectory_length(months, cfg.retirement_years)
-        print(f"[5{label}] search {cfg.num_simulations_search:,} paths -> "
+        if extensions:
+            report["all_on_months"] = months
+        print(f"[5{label}] {'all extensions on, ' if extensions else ''}"
+              f"search {cfg.num_simulations_search:,} paths -> "
               f"{months} months ({len(curve)} candidates, {prob:.2f}%) in "
               f"{t_search:.2f} s; final {n:,} paths: success {success:.3f}%, SWR "
               f"{swr:.3f}%, in {t_final:.2f} s (wall, incl. host copies); "
@@ -425,7 +578,7 @@ def phase_main_path(report):
                     cfg.num_simulations_search)
         check_full(report, f"5{label}", sim.engine, months, n)
     report["launches"] = dict(launches)
-    print(f"[5] launches over the two main-path runs: {launches}")
+    print(f"[5] launches over the three main-path runs: {launches}")
 
 
 def phase_timings(report):
@@ -483,6 +636,43 @@ def phase_timings(report):
     print(f"[6]   simulate (grid kernel, one row) {times['simulate']:.3f} ms | "
           f"plain {times['simulate_plain']:.3f} ms")
     print(f"[6]   success at W=0: {succ:.3f}%")
+
+    # The same scenario with every extension on (ALL_ON).
+    eng_on = Engine(_config(retirement_years=50, initial_balance=1_500_000.0,
+                            monthly_expenses=4_000.0, **ALL_ON), device="cuda")
+    st_on = eng_on.statics
+    probe_on = eng_on._pack(list(range(16)), "search")
+    full_on = eng_on._pack(0, "final")
+    times["probe_all_on"] = _time_ms(lambda: ck.probe(probe_on, st_on, R, n))
+    times["full_all_on"] = _time_ms(
+        lambda: ck.simulate_full(full_on, st_on, R, n, L))
+    # One cold call each: the plain versions are host-bound launch streams
+    # whose allocations the slice's timings above have already made.
+    times["probe_plain_all_on"] = _time_ms(
+        lambda: ck.probe_plain(probe_on, st_on, R, n), repeats=1, warm=False)
+    times["full_plain_all_on"] = _time_ms(
+        lambda: ck.simulate_full_plain(full_on, st_on, R, n, L), repeats=1,
+        warm=False)
+    succ_on = ck.probe(probe_on, st_on, R, n).counts[0].item() / n * 100
+    print(f"[6] the same with every extension on ({_statics_label(st_on)}; "
+          f"plain: one cold call):")
+    print(f"[6]   probe kernel {times['probe_all_on']:.3f} ms | plain "
+          f"{times['probe_plain_all_on']:.3f} ms")
+    print(f"[6]   full kernel {times['full_all_on']:.3f} ms | plain "
+          f"{times['full_plain_all_on']:.3f} ms")
+    print(f"[6]   success at W=0: {succ_on:.3f}%")
+    # Each extension alone: what it adds to the probe (min of 2).
+    by_ext = {}
+    for name, over in EXTENSIONS.items():
+        eng_x = Engine(_config(retirement_years=50, initial_balance=1_500_000.0,
+                               monthly_expenses=4_000.0, **dict(over)),
+                       device="cuda")
+        packed_x = eng_x._pack(list(range(16)), "search")
+        by_ext[name] = _time_ms(
+            lambda: ck.probe(packed_x, eng_x.statics, R, n), repeats=2)
+    times["probe_by_extension"] = by_ext
+    print("[6]   probe kernel with one extension on (min of 2): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in by_ext.items()))
 
     # One 16-row chunk of the 16 x 16 grid, and the whole grid's wall time.
     configs = _grid_chunk_configs()
@@ -618,6 +808,23 @@ def phase_modes(report):
             and lo <= best["best"]["value"] <= hi):
         raise AssertionError("[8c] optimize result or launches are wrong")
 
+    # The all-on config's sensitivity at phase 5's all-on month.
+    on_req = SensitivityRequest(config=_raw_config(**dict(ALL_ON)),
+                                working_months=report["all_on_months"],
+                                params=list(ALL_ON_SENSITIVITY), num_paths=N_FULL)
+    on_sens, ran = counted("8d", lambda: run_sensitivity_request(on_req,
+                                                                 device="cuda"))
+    on_rows = {r["param"]: r for r in on_sens["rows"]}
+    for r in on_sens["rows"]:
+        print(f"[8d]   {r['param']:<36} d success/unit {r['d_success']:>12.4g}"
+              f"  per step {r['success_per_step']:>+8.3f}%  base "
+              f"{r['success_base']:.3f}%")
+    if not (ran["grid"] >= 1 and len(on_rows) == len(ALL_ON_SENSITIVITY)
+            and all(on_rows[p]["d_success"] < 0 for p in (
+                "market_crashes.frequency_per_year", "longevity.mode_age",
+                "inv1_annual_tax_on_gains_rate"))):
+        raise AssertionError("[8d] all-on sensitivity signs or launches are wrong")
+
     # bench.py's workload through simulate (what ROADMAP A5's bench calls).
     from monte_carlo_retirement_tpu_torch.engine.runner import Engine
 
@@ -625,23 +832,93 @@ def phase_modes(report):
                          monthly_expenses=4_000.0), device="cuda")
     R, n = eng.retirement_years, N_FULL
     packed = eng._pack(0, "search")
-    sim, ran = counted("8d", lambda: ck.simulate(packed, eng.statics, R, n))
+    sim, ran = counted("8e", lambda: ck.simulate(packed, eng.statics, R, n))
     if ran["simulate"] != 1:
-        raise AssertionError(f"[8d] simulate launches {ran}")
+        raise AssertionError(f"[8e] simulate launches {ran}")
     plain = ck.simulate_plain(packed, eng.statics, R, n)
     probe = ck.probe(eng._pack([0, 1], "search"), eng.statics, R, n)
     torch.cuda.synchronize()
     err = _compare_rows(
-        "8d", "simulate (grid kernel, one row)",
+        "8e", "simulate (grid kernel, one row)",
         ck.ProbeOut((sim.success > 0.5).sum()[None], sim.success[None],
                     sim.final_balance[None]),
         ck.ProbeOut((plain.success > 0.5).sum()[None], plain.success[None],
                     plain.final_balance[None]),
         n, "W=0, 1M x 600 months")
     if not torch.equal(sim.success, probe.success[0]):
-        raise AssertionError("[8d] simulate's flags differ from the probe's at W=0")
-    print("[8d]   simulate's flags equal the probe kernel's at W=0")
+        raise AssertionError("[8e] simulate's flags differ from the probe's at W=0")
+    print("[8e]   simulate's flags equal the probe kernel's at W=0")
     report["sim_err"] = err
+
+
+def phase_extensions(report):
+    import numpy as np
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine.runner import Engine
+    from monte_carlo_retirement_tpu_torch.ops.shocks import BLOCK_PATHS as B
+
+    months = [int(m) for m in np.linspace(0, 240, 16).round()]
+    for name, over in list(EXTENSIONS.items()) + [("all", ALL_ON)]:
+        eng = Engine(_config(retirement_years=EXT_R, **dict(over)), device="cuda")
+        print(f"[9 {name}] {_statics_label(eng.statics)}, R={EXT_R}")
+        check_probe(report, f"9 {name}", eng, months, N_CHECK)
+        # W=160: between 5% and 97% of paths succeed under most extensions
+        check_full(report, f"9 {name}", eng, 160, N_CHECK)
+        rows = [_config(retirement_years=EXT_R, **dict(over), monthly_expenses=e,
+                        allocation_inv1_pct=a)
+                for e, a in ((8_000.0, 0.6), (10_000.0, 0.8), (12_000.0, 0.45))]
+        check_grid(report, f"9 {name}", rows, [0, 120, GRID_W], N_CHECK)
+
+    # Rule-off bit-identity: every parameter a disabled feature would read,
+    # poisoned, changes no bit of the probe or full kernel's outputs.
+    eng = Engine(_config(), device="cuda")
+    st, R, F = eng.statics, eng.retirement_years, ck.F
+    if any(st[6:]) or st.bill1 or st.bill2:
+        raise AssertionError("[9] config.json's Statics have an extension on")
+    poison = {F.R_ANN1: 0.9, F.R_ANN2: 0.9, F.ALLOC1_F: 0.0, F.GR_UP: 1e-4,
+              F.GR_LO: 10.0, F.GR_ADJ: 0.5, F.GR_FLOOR: 0.1, F.GR_CAP: 3.0,
+              F.JP: 1.0, F.JMU: -2.0, F.JSIG: 1.0, F.JBETA: 1.0, F.JC1: 0.5,
+              F.JC2: 0.5, F.MORT_G0: 0.1, F.MORT_B12: 1.0, F.MORT_CAP: 1.0,
+              F.NUM + 2 * len(st.stream_indexed): 1.0}  # uncapped duration
+
+    def poisoned(packed):
+        fp = packed.fp.clone()
+        for i, v in poison.items():
+            fp[i] = v
+        return ck.Packed(fp=fp, ip=packed.ip, n_streams=packed.n_streams)
+
+    probe_packed = eng._pack(months, "search")
+    outs = [ck.probe(p, st, R, N_CHECK) for p in (probe_packed, poisoned(probe_packed))]
+    full_packed = eng._pack(234, "final")
+    L = 1 + eng._t_scan(234) // 12
+    fulls = [ck.simulate_full(p, st, R, N_CHECK, L)
+             for p in (full_packed, poisoned(full_packed))]
+    torch.cuda.synchronize()
+    same = torch.equal(outs[0].success, outs[1].success) and torch.equal(
+        outs[0].final_balance, outs[1].final_balance) and all(
+        torch.equal(fulls[0][k].nan_to_num(-7.0), fulls[1][k].nan_to_num(-7.0))
+        for k in fulls[0])
+    print(f"[9] rule-off: {len(poison)} parameters of disabled features "
+          f"poisoned; probe and full kernel outputs bit-equal: {same}")
+    if not same:
+        raise AssertionError("[9] a disabled feature's parameters changed the bits")
+
+    # Antithetic pairing: blocks 2k and 2k+1 share key block k. At W=231
+    # most paths survive, so the twins' final balances are not all zero.
+    anti = Engine(_config(antithetic=True), device="cuda").statics
+    packed = eng._pack([GRID_W], "search")
+    a = ck.probe(packed, anti, R, 4 * B)
+    i = ck.probe(packed, st, R, 2 * B)
+    torch.cuda.synchronize()
+    fa, fi = a.final_balance[0], i.final_balance[0]
+    paired = (torch.equal(fa[:B], fi[:B]) and torch.equal(fa[2 * B:3 * B], fi[B:])
+              and torch.equal(a.success[0][2 * B:3 * B], i.success[0][B:]))
+    twins = not torch.equal(fa[B:2 * B], fa[:B])
+    print(f"[9] antithetic: even blocks bit-equal to the iid probe's blocks: "
+          f"{paired}; odd blocks differ from their pairs: {twins}")
+    if not (paired and twins):
+        raise AssertionError("[9] antithetic pairing is wrong on the card")
 
 
 def main() -> int:
@@ -661,8 +938,11 @@ def main() -> int:
     logging.getLogger("mcrt.config").setLevel(logging.ERROR)
     report = {}
     for phase in (phase_build, phase_normals, phase_probe, phase_full,
-                  phase_main_path, phase_timings, phase_grid, phase_modes):
+                  phase_main_path, phase_timings, phase_grid, phase_modes,
+                  phase_extensions):
+        t0 = time.perf_counter()
         phase(report)
+        print(f"--- {phase.__name__}: {time.perf_counter() - t0:.1f} s wall")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -671,11 +951,15 @@ def main() -> int:
         {"name": "probe_kernel", "route": "cuda", "source": CU_SOURCE,
          "replaces": "monte_carlo_retirement_tpu/engine/pallas_kernel.py:1325",
          "launches": launches["probe"], "max_abs_err": report["probe_err"],
-         "ms": times["probe"], "plain_ms": times["probe_plain"]},
+         "ms": times["probe"], "plain_ms": times["probe_plain"],
+         "ms_all_on": times["probe_all_on"],
+         "plain_ms_all_on": times["probe_plain_all_on"]},
         {"name": "full_kernel", "route": "cuda", "source": CU_SOURCE,
          "replaces": "monte_carlo_retirement_tpu/engine/pallas_kernel.py:1405",
          "launches": launches["full"], "max_abs_err": report["full_err"],
-         "ms": times["full"], "plain_ms": times["full_plain"]},
+         "ms": times["full"], "plain_ms": times["full_plain"],
+         "ms_all_on": times["full_all_on"],
+         "plain_ms_all_on": times["full_plain_all_on"]},
         {"name": "grid_kernel", "route": "cuda", "source": CU_SOURCE,
          "replaces": "monte_carlo_retirement_tpu/engine/pallas_kernel.py:1567",
          "launches": launches["grid"], "max_abs_err": report["grid_err"],
@@ -690,7 +974,8 @@ def main() -> int:
           "difference| over every check of that kernel; full = largest "
           "|withdrawal-rate difference| (points) over every full check; "
           "ms = the kernel alone (phase 6); launches = the main path "
-          "(phase 5), the analysis modes (8a-c) and bench.py's workload (8d)")
+          "(phase 5), the analysis modes (8a-d) and bench.py's workload (8e); "
+          "ms_all_on / plain_ms_all_on = the same under the all-on Statics")
     print(json.dumps({"kernels": kernels}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {

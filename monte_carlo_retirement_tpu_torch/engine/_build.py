@@ -1,10 +1,19 @@
 """Build and load the CUDA kernels (nvcc -> shared library -> ctypes).
 
-The sources are ``engine/csrc/*.cu`` of this checkout, compiled for
-Hopper (``sm_90a``) into ``build/torch_kernels/`` at the root of the
-checkout (``MCRT_TORCH_BUILD_DIR`` overrides it) on first use, and again
-whenever the sources or flags change: the library's file name carries their
-hash. The library has a plain C interface; every pointer and the stream go
+The sources are ``engine/csrc/`` of this checkout, compiled for Hopper
+(``sm_90a``) into ``build/torch_kernels/`` at the root of the checkout
+(``MCRT_TORCH_BUILD_DIR`` overrides it) on first use, and again whenever
+the sources or flags change: a library's file name carries their hash.
+
+The month-loop kernels (``month_loop.cu``) are built once per ``Statics``,
+as the JAX package builds one executable per Statics: a small generated
+unit defines every flag of the Statics as a constant and includes the
+source, so each library holds one instance of each kernel, with every
+disabled feature compiled out. A new Statics costs one nvcc run of a few
+seconds on first use; :func:`build_many` starts several at once. The
+stream check (``normals.cu``) is one library of its own.
+
+The libraries have a plain C interface; every pointer and the stream go
 through ``ctypes.c_void_p``, and every entry returns its launch's
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
 """
@@ -18,18 +27,20 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("month_loop.cu",)
+SOURCES = ("philox.cuh", "month_loop.cu", "normals.cu")
 # No --use_fast_math: division and sqrt stay IEEE. -Xptxas -v only prints
 # each kernel's registers and spills into the build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+NVCC_TIMEOUT_S = 1200
 
 _LOCK = threading.Lock()
-_LIB = None
+_LIBS: Dict[object, ctypes.CDLL] = {}
 
 
 def build_dir() -> Path:
@@ -62,54 +73,131 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return build_dir() / f"month_loop_{source_hash()}.so"
+def statics_unit(statics) -> str:
+    """The generated translation unit of one Statics: each flag as a
+    constant, then the kernels' source. A stream's kind is one int: bit 0
+    CPI-indexed, bit 1 duration-capped."""
+    if len(statics.stream_indexed) != len(statics.stream_capped):
+        raise ValueError("stream_indexed and stream_capped differ in length")
+    kinds = ", ".join(
+        str(int(bool(i)) | 2 * int(bool(c)))
+        for i, c in zip(statics.stream_indexed, statics.stream_capped)
+    )
+    flags = {
+        "MCRT_USE_REAL1": statics.use_real1,
+        "MCRT_USE_REAL2": statics.use_real2,
+        "MCRT_BILL1": statics.bill1,
+        "MCRT_BILL2": statics.bill2,
+        "MCRT_ANTITHETIC": statics.antithetic,
+        "MCRT_GLIDE": statics.glide,
+        "MCRT_GUARDRAILS": statics.guardrails,
+        "MCRT_JUMPS": statics.jumps,
+        "MCRT_MORTALITY": statics.mortality,
+    }
+    lines = [f"#define {name} {int(bool(v))}" for name, v in flags.items()]
+    lines += [
+        f"#define MCRT_NS {len(statics.stream_indexed)}",
+        f"#define MCRT_STREAM_KINDS {kinds}",
+        '#include "month_loop.cu"',
+    ]
+    return "\n".join(lines) + "\n"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library of these sources exists."""
-    so = library_path()
-    if so.exists():
-        return so
-    so.parent.mkdir(parents=True, exist_ok=True)
+def library_path(statics=None) -> Path:
+    """The month-loop library of ``statics``; the stream check's for None."""
+    if statics is None:
+        return build_dir() / f"normals_{source_hash()}.so"
+    tag = hashlib.sha256(statics_unit(statics).encode()).hexdigest()[:12]
+    return build_dir() / f"month_loop_{source_hash()}_{tag}.so"
+
+
+def _start(statics, so: Path):
+    """Write the unit (for a Statics) and start nvcc on it."""
+    if statics is None:
+        unit = CSRC / "normals.cu"
+    else:
+        unit = so.with_suffix(".cu")
+        unit.write_text(statics_unit(statics))
     tmp = so.with_name(f".{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=1200)
-    log = so.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}"
-        )
-    os.replace(tmp, so)
-    return so
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(unit)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, cmd, tmp
 
 
-def build_log() -> str:
-    log = library_path().with_suffix(".log")
+def build_many(statics_list: Sequence[Optional[object]]) -> List[Path]:
+    """Build the libraries of every Statics in ``statics_list`` (None: the
+    stream check) that does not exist yet, one nvcc each, all started
+    together; returns their paths in order."""
+    paths = [library_path(s) for s in statics_list]
+    todo = {}
+    for s, so in zip(statics_list, paths):
+        if not so.exists() and so not in todo:
+            todo[so] = s
+    if not todo:
+        return paths
+    build_dir().mkdir(parents=True, exist_ok=True)
+    running = [(so, *_start(s, so)) for so, s in todo.items()]
+    failures = []
+    try:
+        for so, proc, cmd, tmp in running:
+            out, err = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out + err)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failures.append(f"{so.name}: nvcc failed ({proc.returncode}):\n"
+                                f"{err[-6000:]}")
+            else:
+                os.replace(tmp, so)
+    finally:
+        for _so, proc, _cmd, _tmp in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths
+
+
+def build(statics=None) -> Path:
+    """Compile one library unless it exists."""
+    return build_many([statics])[0]
+
+
+def build_log(statics=None) -> str:
+    log = library_path(statics).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once per process."""
-    global _LIB
+def _bind(lib: ctypes.CDLL, statics) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    if statics is None:
+        entries = {"mcrt_normals": [vp, i, vp, vp, vp]}
+    else:
+        entries = {
+            "mcrt_probe": [vp, vp, i, i, i, i, vp, vp, vp, vp],
+            "mcrt_grid": [vp, vp, i, i, i, i, vp, vp, vp, vp],
+            "mcrt_full": [vp, vp, i, i, i, i, vp, vp, vp, vp, vp],
+        }
+    for name, argtypes in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i
+    lib.mcrt_error_string.argtypes = [i]
+    lib.mcrt_error_string.restype = ctypes.c_char_p
+
+
+def load(statics=None) -> ctypes.CDLL:
+    """The month-loop library of ``statics`` (the stream check's for None),
+    built on first use and loaded once per process."""
+    key = statics
     with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.mcrt_probe.argtypes = [vp, vp, i, i, i, i, i, i, vp, vp, vp, vp]
-            lib.mcrt_grid.argtypes = [vp, vp, i, i, i, i, i, i, vp, vp, vp, vp]
-            lib.mcrt_full.argtypes = [vp, vp, i, i, i, i, i, i, vp, vp, vp, vp, vp]
-            lib.mcrt_normals.argtypes = [vp, i, vp, vp, vp]
-            for fn in (lib.mcrt_probe, lib.mcrt_grid, lib.mcrt_full,
-                       lib.mcrt_normals):
-                fn.restype = i
-            lib.mcrt_error_string.argtypes = [i]
-            lib.mcrt_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
+        lib = _LIBS.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(statics)))
+            _bind(lib, statics)
+            _LIBS[key] = lib
+        return lib
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

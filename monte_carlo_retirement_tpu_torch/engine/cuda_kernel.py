@@ -25,11 +25,12 @@ raises. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain
 calls, so a run can show which path it took.
 
 Compile-time structure is ``Statics`` (same fields and derivation as
-``pallas_kernel.Statics``). This slice implements the Statics of
-``config.json``/``jorge.json``: either tax system per asset without annual
-mark-to-market bills, and 0-4 CPI-indexed uncapped income streams; every
-other Statics raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+``pallas_kernel.Statics``): the tax system and annual mark-to-market bill
+of each asset, the kind of each income stream (CPI-indexed or
+fixed-nominal, capped or not), antithetic pairing, glide path, spending
+guardrails, market crashes and longevity. Every Statics that the JAX
+package accepts runs here; the kernels are built once per Statics on first
+use (``_build.py``), with every disabled feature compiled out.
 """
 
 from __future__ import annotations
@@ -43,8 +44,6 @@ import torch
 
 from ..constants import MONTHS_PER_YEAR
 from ..models.retirement import SimParams, prune_streams
-
-MAX_STREAMS = 4
 
 # Kernel launches / plain-version calls since the last reset.
 LAUNCHES: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0}
@@ -117,28 +116,6 @@ def statics_from_config(config) -> Statics:
         jumps=getattr(config, "market_crashes", None) is not None,
         mortality=getattr(config, "longevity", None) is not None,
     )
-
-
-def check_slice(statics: Statics) -> None:
-    """Raise NotImplementedError for Statics this port does not run yet."""
-    missing = []
-    if statics.bill1 or statics.bill2:
-        missing.append("annual mark-to-market tax bills")
-    if not all(statics.stream_indexed):
-        missing.append("fixed-nominal income streams")
-    if any(statics.stream_capped):
-        missing.append("duration-capped income streams")
-    if len(statics.stream_indexed) > MAX_STREAMS:
-        missing.append(f"more than {MAX_STREAMS} income streams")
-    for flag in ("antithetic", "glide", "guardrails", "jumps", "mortality"):
-        if getattr(statics, flag):
-            missing.append(flag)
-    if missing:
-        raise NotImplementedError(
-            "the PyTorch/CUDA port does not run "
-            + ", ".join(missing)
-            + " yet (ROADMAP.md item A8: extensions on both kernels)"
-        )
 
 
 @dataclasses.dataclass
@@ -361,7 +338,8 @@ def _runs_plain(packed: Packed, statics: Statics, what: str) -> bool:
             or not ip.is_contiguous() or not fp_ok
             or ip.ndim != 2 or ip.shape[1] != NUM_IPARAMS
             or not 1 <= rows <= MAX_ROWS
-            or len(statics.stream_indexed) != S):
+            or len(statics.stream_indexed) != S
+            or len(statics.stream_capped) != S):
         raise ValueError(
             f"malformed parameter block for the {what} kernel: fp "
             f"{tuple(fp.shape)} on {fp.device}, ip {tuple(ip.shape)} on "
@@ -392,7 +370,7 @@ def _launch_rows(entry: str, packed: Packed, statics: Statics,
     (``mcrt_grid``): K rows x ``n_paths`` paths."""
     from . import _build
 
-    lib = _build.load()
+    lib = _build.load(statics)
     dev = packed.device
     K, n = packed.ip.shape[0], int(n_paths)
     success = torch.empty((K, n), dtype=torch.float32, device=dev)
@@ -401,8 +379,7 @@ def _launch_rows(entry: str, packed: Packed, statics: Statics,
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             packed.fp.data_ptr(), packed.ip.data_ptr(), K, n,
-            int(retirement_years), int(statics.use_real1),
-            int(statics.use_real2), packed.n_streams, success.data_ptr(),
+            int(retirement_years), packed.n_streams, success.data_ptr(),
             final.data_ptr(), counts.data_ptr(), _stream_ptr(dev),
         )
     _build.check(lib, rc, f"{entry} launch")
@@ -426,7 +403,6 @@ def probe(packed: Packed, statics: Statics, retirement_years: int,
           n_paths: int) -> ProbeOut:
     """Per-candidate survivors over exactly ``n_paths`` paths (kernel on a
     CUDA tensor, plain version on a CPU tensor)."""
-    check_slice(statics)
     if packed.fp.ndim != 1:
         raise ValueError("probe takes one shared parameter block (pack_params)")
     if _runs_plain(packed, statics, "probe"):
@@ -439,8 +415,7 @@ def probe(packed: Packed, statics: Statics, retirement_years: int,
 def probe_plain(packed: Packed, statics: Statics, retirement_years: int,
                 n_paths: int, shocks: Optional[torch.Tensor] = None) -> ProbeOut:
     """Plain PyTorch version of :func:`probe` (optionally on injected
-    shocks, (T, 3, n))."""
-    check_slice(statics)
+    shocks, (T, P, n) in the plane layout of ``kernel.shock_planes``)."""
     PLAIN_CALLS["probe"] += 1
     return _plain_rows(packed, statics, retirement_years, n_paths, shocks)
 
@@ -453,7 +428,6 @@ def grid(packed: Packed, statics: Statics, retirement_years: int,
     """Per-scenario survivors, alive flags and final balances (K, n) over
     exactly ``n_paths`` paths for a :func:`pack_grid` block (kernel on a
     CUDA tensor, plain version on a CPU tensor)."""
-    check_slice(statics)
     if packed.fp.ndim != 2:
         raise ValueError("grid takes one parameter row per scenario (pack_grid)")
     if _runs_plain(packed, statics, "grid"):
@@ -466,8 +440,7 @@ def grid(packed: Packed, statics: Statics, retirement_years: int,
 def grid_plain(packed: Packed, statics: Statics, retirement_years: int,
                n_paths: int, shocks: Optional[torch.Tensor] = None) -> ProbeOut:
     """Plain PyTorch version of :func:`grid`: one vectorised loop over the
-    K rows (optionally on injected shocks, (T, 3, n))."""
-    check_slice(statics)
+    K rows (optionally on injected shocks, (T, P, n))."""
     PLAIN_CALLS["grid"] += 1
     return _plain_rows(packed, statics, retirement_years, n_paths, shocks)
 
@@ -485,7 +458,6 @@ def simulate(packed: Packed, statics: Statics, retirement_years: int,
     """One working-months value -> per-path success flags and final
     balances (n,), as ``pallas_simulate`` returns them: the grid kernel
     launched with one row."""
-    check_slice(statics)
     row = _one_row(packed)
     if _runs_plain(packed, statics, "simulate"):
         return simulate_plain(packed, statics, retirement_years, n_paths)
@@ -498,7 +470,6 @@ def simulate_plain(packed: Packed, statics: Statics, retirement_years: int,
                    n_paths: int, shocks: Optional[torch.Tensor] = None
                    ) -> SimulateOut:
     """Plain PyTorch version of :func:`simulate`."""
-    check_slice(statics)
     PLAIN_CALLS["simulate"] += 1
     out = _plain_rows(_one_row(packed), statics, retirement_years, n_paths,
                       shocks)
@@ -519,7 +490,6 @@ def simulate_full(packed: Packed, statics: Statics, retirement_years: int,
     """Per-path vectors (n,) and series ``trajectory``/``price_levels``
     (n, traj_len), ``withdrawal_rates`` (n, R) — the JAX public layout, as
     transposed views of the kernel's (L, n) / (R, n) buffers."""
-    check_slice(statics)
     if packed.ip.shape[0] != 1:
         raise ValueError("simulate_full takes one working_months value")
     if _runs_plain(packed, statics, "full"):
@@ -528,7 +498,7 @@ def simulate_full(packed: Packed, statics: Statics, retirement_years: int,
         )
     from . import _build
 
-    lib = _build.load()
+    lib = _build.load(statics)
     dev = packed.device
     n, R, L = int(n_paths), int(retirement_years), int(traj_len)
     vecs = torch.empty((len(VECTOR_FIELDS), n), dtype=torch.float32, device=dev)
@@ -538,8 +508,7 @@ def simulate_full(packed: Packed, statics: Statics, retirement_years: int,
     with torch.cuda.device(dev):
         rc = lib.mcrt_full(
             packed.fp.data_ptr(), packed.ip.data_ptr(), n, R, L,
-            int(statics.use_real1), int(statics.use_real2), packed.n_streams,
-            vecs.data_ptr(), traj.data_ptr(), price.data_ptr(),
+            packed.n_streams, vecs.data_ptr(), traj.data_ptr(), price.data_ptr(),
             wr.data_ptr(), _stream_ptr(dev),
         )
     _build.check(lib, rc, "full_kernel launch")
@@ -557,7 +526,6 @@ def simulate_full_plain(packed: Packed, statics: Statics,
     """Plain PyTorch version of :func:`simulate_full`."""
     from . import kernel
 
-    check_slice(statics)
     PLAIN_CALLS["full"] += 1
     return kernel.simulate(packed, statics, retirement_years, n_paths,
                            traj_len=traj_len, shocks=shocks)
@@ -566,10 +534,13 @@ def simulate_full_plain(packed: Packed, statics: Statics,
 # ---------------------------------------------------------------------------
 # the device stream itself (checks only: holds it bit-equal to ops/shocks)
 # ---------------------------------------------------------------------------
-def device_normals(seed: torch.Tensor, block: torch.Tensor,
-                   month: torch.Tensor, lane: torch.Tensor):
-    """Philox words (4, n) int64 and normals (3, n) float32 computed on the
-    card for per-element (seed, block, month, lane), all CUDA tensors."""
+def device_draws(seed: torch.Tensor, block: torch.Tensor,
+                 month: torch.Tensor, lane: torch.Tensor):
+    """The draws of ``engine/csrc/philox.cuh`` computed on the card for
+    per-element (seed, block, month, lane), all (n,) CUDA tensors: words
+    (6, n) int64 — the month draw's four, the crash normal's, the
+    longevity draw's — and values (6, n) float32 — z_eq, z_ind, z_prem, the
+    crash uniform (word 3) and normal, the longevity uniform."""
     from . import _build
 
     dev = lane.device
@@ -578,15 +549,15 @@ def device_normals(seed: torch.Tensor, block: torch.Tensor,
         t.device == dev and t.shape == lane.shape and t.ndim == 1
         for t in (seed, block, month)
     ):
-        raise ValueError("device_normals takes four (n,) tensors on one CUDA device")
+        raise ValueError("device_draws takes four (n,) tensors on one CUDA device")
     lib = _build.load()
     inp = torch.stack([seed, block, month, lane]).to(torch.int64)
     inp = (inp & 0xFFFFFFFF).to(torch.int32).contiguous()  # uint32 bits
     n = int(inp.shape[1])
-    words = torch.empty((4, n), dtype=torch.int32, device=dev)
-    z = torch.empty((3, n), dtype=torch.float32, device=dev)
+    words = torch.empty((6, n), dtype=torch.int32, device=dev)
+    vals = torch.empty((6, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.mcrt_normals(inp.data_ptr(), n, words.data_ptr(),
-                              z.data_ptr(), _stream_ptr(dev))
+                              vals.data_ptr(), _stream_ptr(dev))
     _build.check(lib, rc, "normals_kernel launch")
-    return words.to(torch.int64) & 0xFFFFFFFF, z
+    return words.to(torch.int64) & 0xFFFFFFFF, vals

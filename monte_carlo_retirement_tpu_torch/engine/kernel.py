@@ -1,22 +1,30 @@
-"""The plain month loop: the port's reference for both CUDA kernels.
+"""The plain month loop: the port's reference for the CUDA kernels.
 
 Paths form the vector axis and months a Python loop with the phases of the
-JAX Pallas body (``pallas_kernel.py:348-1173``): accumulation months 1..W,
-the retirement snapshot, then retirement months W+1..W+12R with ruin
-checks A and B, the capacity-limited withdrawal, the monthly rebalance, the
-year-end records and their death-padding rules, the first-year capture and
-the alive-months counter that becomes years-to-ruin (NaN for survivors).
+JAX Pallas body (``pallas_kernel.py:348-1173``): accumulation months 1..W
+(with the glide target and the annual mark-to-market bills at year
+boundaries), the retirement snapshot (a bill that failed before retirement
+kills the path), then retirement months W+1..W+12R with the guardrails'
+spending multiplier, the income streams (CPI-indexed or fixed-nominal,
+capped or not), longevity, ruin checks A and B, the capacity-limited
+withdrawal, the monthly rebalance, the annual bills and the terminal
+settle, the year-end records and their death-padding rules, the first-year
+capture and the alive-months counter that becomes years-to-ruin (NaN for
+survivors). Every branch follows the compile-time ``Statics``: a feature
+that is off runs no code and reads none of its parameters.
 
-Shocks come either injected, ``(T, 3, n)`` with month m reading row m-1, or
-from the Philox stream of ``ops/shocks.py``. Candidates (rows of the packed
-iparams) share one month's draws and differ in their working months and,
-in a scenario grid, in their parameter rows (each parameter is a column
-that broadcasts over the paths, so one vectorised loop runs K scenarios):
-a candidate takes the accumulation step while m <= W and the retirement
-step while W < m <= W + 12R. The loop runs in float64 on the CPU (the
-tests and the CPU engine) and in float32 on the card, where it is the
-yardstick of the kernels. Only the compile-time ``Statics`` of the slice
-are implemented; ``cuda_kernel.check_slice`` rejects the others first.
+Shocks come either injected, ``(T, P, n)`` with month m reading row m-1 in
+the Pallas plane layout (planes 0-2 the normals; with crashes 3-4 the crash
+uniform and normal; with longevity plane 5 of month 0 the longevity
+uniform; antithetic pairing does not apply to injected shocks), or from the
+Philox stream of ``ops/shocks.py``. Candidates (rows of the packed iparams)
+share one month's draws and differ in their working months and, in a
+scenario grid, in their parameter rows (each parameter is a column that
+broadcasts over the paths, so one vectorised loop runs K scenarios): a
+candidate takes the accumulation step while m <= W and the retirement step
+while W < m <= W + 12R, and its snapshot right after its own month W. The
+loop runs in float64 on the CPU (the tests and the CPU engine) and in
+float32 on the card, where it is the yardstick of the kernels.
 """
 
 from __future__ import annotations
@@ -27,8 +35,15 @@ from typing import Dict, Optional
 import torch
 
 from ..constants import MONTHS_PER_YEAR, SMALL_EPSILON
-from ..ops.shocks import month_normals, path_keys
+from ..ops.shocks import (
+    gompertz_remaining_months,
+    month_draws,
+    mortality_uniform,
+    pair_blocks,
+    path_keys,
+)
 from ..ops.tax import (
+    annual_tax,
     fail_rtol,
     monthly_rebalance,
     profile,
@@ -39,6 +54,11 @@ from .cuda_kernel import F
 
 EPS = SMALL_EPSILON
 Y = MONTHS_PER_YEAR
+
+
+def shock_planes(statics) -> int:
+    """Planes an injected-shocks tensor needs under ``statics``."""
+    return 6 if statics.mortality else 5 if statics.jumps else 3
 
 
 def simulate(
@@ -73,6 +93,10 @@ def simulate(
     w_list = [r[0] for r in ip]
     t_end_list = [r[1] for r in ip]
     S = packed.n_streams
+    if len(statics.stream_indexed) != S or len(statics.stream_capped) != S:
+        raise ValueError(f"statics for {len(statics.stream_indexed)} streams, "
+                         f"parameters for {S}")
+    bills = statics.bill1 or statics.bill2
     # Every parameter is a (1, 1) or (K, 1) column that broadcasts against
     # the (K, n) state.
     fp = packed.fp.reshape(-1, F.NUM + 5 * S)
@@ -94,6 +118,7 @@ def simulate(
     mup, sp, rho, rho_c = col(F.MUP_M), col(F.SP_M), col(F.RHO), col(F.RHO_C)
     s_amount = [col(F.NUM + s) for s in range(S)]
     s_from_t0 = [col(F.NUM + S + s) for s in range(S)]
+    s_duration = [col(F.NUM + 2 * S + s) for s in range(S)]
     stream_net = [1.0 - col(F.NUM + 4 * S + s) for s in range(S)]
     w_t = torch.tensor(w_list, dtype=torch.int64, device=dev)[:, None]
     t_end_t = torch.tensor(t_end_list, dtype=torch.int64, device=dev)[:, None]
@@ -105,21 +130,67 @@ def simulate(
         for s in range(S)
     ]
 
-    if shocks is None:
+    def tax(b1, c1, b2, c2, g1a, g2a, a1):
+        return annual_tax(b1, c1, b2, c2, g1a, g2a, a1, use1, r1,
+                          statics.bill1, col(F.R_ANN1), use2, r2,
+                          statics.bill2, col(F.R_ANN2), rtol)
+
+    # Glide: month-m target a0 + (af - a0) * m / W; retirement holds af.
+    if statics.glide:
+        alloc_ret = col(F.ALLOC1_F)
+        glide_scale = (alloc_ret - alloc1) / torch.clamp(w_f, min=1.0)
+    else:
+        alloc_ret = alloc1
+    if statics.guardrails:
+        gr_up, gr_lo, gr_adj = col(F.GR_UP), col(F.GR_LO), col(F.GR_ADJ)
+        gr_floor, gr_cap = col(F.GR_FLOOR), col(F.GR_CAP)
+    if statics.jumps:
+        jp, jmu, jsig = col(F.JP), col(F.JMU), col(F.JSIG)
+        jbeta, jc1, jc2 = col(F.JBETA), col(F.JC1), col(F.JC2)
+
+    sign = None
+    if shocks is not None:
+        if shocks.ndim != 3 or shocks.shape[1] < shock_planes(statics):
+            raise ValueError(
+                f"injected shocks of shape {tuple(shocks.shape)}: these "
+                f"Statics need (T, {shock_planes(statics)}, n)"
+            )
+    else:
         gblock, lane = path_keys(n, boff, dev)
+        if statics.antithetic:
+            gblock, sign = pair_blocks(gblock)
 
     def draw(m):
         if shocks is not None:
             z = shocks[m - 1].to(dtype)
         else:
-            z = month_normals(seed, gblock, m, lane).to(dtype)
+            z = month_draws(seed, gblock, m, lane, jumps=statics.jumps,
+                            sign=sign).to(dtype)
         z_inf = rho * z[0] + rho_c * z[1]
-        g1 = torch.exp(mu1 + s1 * z[0])
-        gi = torch.exp(mui + si * z_inf)
-        gp = torch.exp(mup + sp * z[2])
+        if statics.jumps:
+            # Compensated crash jump folded into the exponents.
+            jl = torch.where(z[3] < jp, jmu + jsig * z[4], 0.0)
+            g1 = torch.exp(mu1 + s1 * z[0] + (jl - jc1))
+            gi = torch.exp(mui + si * z_inf)
+            gp = torch.exp(mup + sp * z[2] + (jbeta * jl - jc2))
+        else:
+            g1 = torch.exp(mu1 + s1 * z[0])
+            gi = torch.exp(mui + si * z_inf)
+            gp = torch.exp(mup + sp * z[2])
         return g1, gi, gi * gp
 
+    if statics.mortality:
+        # One uniform per path -> remaining months at each row's own W.
+        if shocks is not None:
+            u_mort = shocks[0, 5].to(dtype)
+        else:
+            u_mort = mortality_uniform(seed, gblock, lane, sign=sign).to(dtype)
+        d_mort = gompertz_remaining_months(
+            u_mort, col(F.MORT_G0), col(F.MORT_B12), col(F.MORT_CAP), w_f
+        )
+
     shape = (K, n)
+    zeros = torch.zeros(shape, dtype=dtype, device=dev)
     b1 = (init_bal * alloc1).expand(shape).contiguous()
     b2 = init_bal - b1
     st = {
@@ -127,9 +198,15 @@ def simulate(
         "infl": torch.ones(shape, dtype=dtype, device=dev),
         "alive": torch.ones(shape, dtype=dtype, device=dev),
     }
+    if bills:
+        st.update(g1a=zeros, g2a=zeros, preret=zeros)  # period gains, pre-ret fail
+    fixed_streams = [s for s in range(S) if not statics.stream_indexed[s]]
+    for s in fixed_streams:
+        st[f"fixed{s}"] = zeros - 1.0  # frozen nominal amount, -1 = not yet
+    if statics.guardrails:
+        st["smult"] = zeros + 1.0  # spending multiplier, year 0 = the plan
     if track:
         L = int(traj_len)
-        zeros = torch.zeros(shape, dtype=dtype, device=dev)
         st.update(ytr=zeros, yg=zeros, yr=zeros, fyg=zeros, fyr=zeros)
         traj = torch.zeros((L, n), dtype=dtype, device=dev)
         traj[0] = init_bal[0, 0]
@@ -139,31 +216,52 @@ def simulate(
         full_wy, partial_wy = w // Y, int(w % Y != 0)
         snap = {}
 
-    def accum_month(m, s):
-        g1, gi, g2 = draw(m)
+    def accum_month(m, s, g):
+        g1, gi, g2 = g
+        out = dict(s)
+        if bills:
+            out["g1a"] = s["g1a"] + s["b1"] * (g1 - 1.0)
+            out["g2a"] = s["g2a"] + s["b2"] * (g2 - 1.0)
         b1, b2 = s["b1"] * g1, s["b2"] * g2
         infl = s["infl"] * gi
         years = (m - 1) // Y
         contrib = contrib0 * torch.exp(log1p_growth * years)
-        ca1 = contrib * alloc1
+        al = alloc1 + glide_scale * m if statics.glide else alloc1
+        ca1 = contrib * al
         ca2 = contrib - ca1
         b1, c1 = b1 + ca1, s["c1"] + ca1
         b2, c2 = b2 + ca2, s["c2"] + ca2
         b1, c1, b2, c2 = monthly_rebalance(
-            b1, c1, b2, c2, alloc1, use1, r1, use2, r2
+            b1, c1, b2, c2, al, use1, r1, use2, r2
         )
+        if bills and m % Y == 0:
+            b1, c1, b2, c2, failed = tax(b1, c1, b2, c2, out["g1a"],
+                                         out["g2a"], al)
+            out["g1a"], out["g2a"] = out["g1a"] * 0.0, out["g2a"] * 0.0
+            out["preret"] = torch.where(failed, 1.0, s["preret"])
         if track and m % Y == 0:
             slot = min(m // Y, L - 1)
             traj[slot] = (b1 + b2)[0]
             price[slot] = infl[0]
-        return dict(s, b1=b1, c1=c1, b2=b2, c2=c2, infl=infl)
+        out.update(b1=b1, c1=c1, b2=b2, c2=c2, infl=infl)
+        return out
 
-    def ret_month(m, s):
+    def snapshot(s, rows):
+        """A bill that failed before retirement kills the path at its own
+        W (``rows``: the candidates whose accumulation just ended)."""
+        if not bills:
+            return s
+        killed = rows & (s["preret"] > 0.5)
+        return dict(s, alive=torch.where(killed, 0.0, s["alive"]))
+
+    def ret_month(m, s, g):
         b1, c1, b2, c2 = s["b1"], s["c1"], s["b2"], s["c2"]
         infl, alive_f = s["infl"], s["alive"]
+        out = dict(s)
         alive = alive_f > 0.5
         alive0_f = alive_f
-        ret_idx_f = (m - w_t - 1).to(dtype)
+        ret_idx = m - w_t - 1
+        ret_idx_f = ret_idx.to(dtype)
         if track:
             k = m - w
             yg, yr = s["yg"], s["yr"]
@@ -172,22 +270,51 @@ def simulate(
 
         # --- income waterfall & net spending need
         price0 = infl
-        need = expenses * price0
+        expenses_eff = expenses
+        if statics.guardrails:
+            # Year-start check (years 1+) of the planned WR against the
+            # balance entering the month.
+            smult = s["smult"]
+            planned = 12.0 * expenses * smult * price0
+            wr_now = planned / torch.clamp(b1 + b2, min=EPS)
+            s_new = torch.where(wr_now > gr_up, smult * (1.0 - gr_adj), smult)
+            s_new = torch.where(wr_now < gr_lo, smult * (1.0 + gr_adj), s_new)
+            s_new = torch.minimum(torch.maximum(s_new, gr_floor), gr_cap)
+            at_year_start = (ret_idx % Y == 0) & (ret_idx > 0)
+            smult = torch.where(at_year_start & alive, s_new, smult)
+            out["smult"] = smult
+            expenses_eff = expenses * smult
+        need = expenses_eff * price0
         if S:
             net_income = None
             for i in range(S):
-                inc = torch.where(
-                    ret_idx_f >= stream_start[i],
-                    s_amount[i] * price0 * stream_net[i],
-                    0.0,
-                )
+                active = ret_idx_f >= stream_start[i]
+                if statics.stream_capped[i]:
+                    active = active & (ret_idx_f < stream_start[i] + s_duration[i])
+                if statics.stream_indexed[i]:
+                    nominal = s_amount[i] * price0
+                else:
+                    slot = s[f"fixed{i}"]
+                    nominal = torch.where(
+                        active & (ret_idx_f == stream_start[i]) & (slot < 0),
+                        s_amount[i] * price0, slot,
+                    )
+                    out[f"fixed{i}"] = nominal
+                inc = torch.where(active, nominal * stream_net[i], 0.0)
                 net_income = inc if net_income is None else net_income + inc
             need = torch.clamp(need - net_income, min=0.0)
+        if statics.mortality:
+            # Spending ends with the owner; the estate keeps evolving.
+            living = ret_idx_f < d_mort
+            need = torch.where(living, need, 0.0)
 
         # --- ruin check A, then growth (dead/ruined paths freeze)
         dies_a = alive & (b1 + b2 <= EPS) & (need > EPS)
-        g1, gi, g2 = draw(m)
+        g1, gi, g2 = g
         gmask = alive & ~dies_a
+        if bills:
+            out["g1a"] = s["g1a"] + torch.where(gmask, b1 * (g1 - 1.0), 0.0)
+            out["g2a"] = s["g2a"] + torch.where(gmask, b2 * (g2 - 1.0), 0.0)
         b1 = torch.where(gmask, b1 * g1, b1)
         b2 = torch.where(gmask, b2 * g2, b2)
         infl = torch.where(gmask, infl * gi, infl)
@@ -209,18 +336,43 @@ def simulate(
 
         # --- monthly rebalance (the proportional sale left the profiles valid)
         b1, c1, b2, c2 = rebalance_lite(
-            b1, c1, b2, c2, prof1[0], prof2[0], alloc1, extra_noop=~wmask
+            b1, c1, b2, c2, prof1[0], prof2[0], alloc_ret, extra_noop=~wmask
         )
-        dies = dies_a | dies_b | fail_net
+
+        # --- annual taxes at absolute year boundaries and the terminal
+        # settle of a partial last year; a settle failure is no ruin for
+        # the records
+        dies_pre = dies_a | dies_b | fail_net
+        dies = dies_regular = dies_pre
+        if bills:
+            is_boundary = m % Y == 0
+            is_settle = (m == t_end_t) & (w_t % Y != 0)
+            if is_boundary or bool(is_settle.any()):
+                tb1, tc1, tb2, tc2, failed = tax(b1, c1, b2, c2, out["g1a"],
+                                                 out["g2a"], alloc_ret)
+                if is_boundary:
+                    mask = wmask & ~fail_net
+                else:
+                    mask = is_settle & alive & ~dies_pre
+                b1 = torch.where(mask, tb1, b1)
+                c1 = torch.where(mask, tc1, c1)
+                b2 = torch.where(mask, tb2, b2)
+                c2 = torch.where(mask, tc2, c2)
+                if is_boundary:
+                    out["g1a"] = torch.where(mask, 0.0, out["g1a"])
+                    out["g2a"] = torch.where(mask, 0.0, out["g2a"])
+                tfail = mask & failed
+                dies = dies_pre | tfail
+                dies_regular = dies & ~(is_settle & tfail)
         alive_f = torch.where(dies, 0.0, alive_f)
-        out = dict(s, b1=b1, c1=c1, b2=b2, c2=c2, infl=infl, alive=alive_f)
+        out.update(b1=b1, c1=c1, b2=b2, c2=c2, infl=infl, alive=alive_f)
         if not track:
             return out
 
         ytr = s["ytr"] + alive0_f
         fyg, fyr = s["fyg"], s["fyr"]
         if k <= Y:  # first retirement year: capture at death or year end
-            cap_fy = (alive0_f > 0.5) & (dies | (k % Y == 0))
+            cap_fy = (alive0_f > 0.5) & (dies_regular | (k % Y == 0))
             fyg = torch.where(cap_fy, yg, fyg)
             fyr = torch.where(cap_fy, yr * snap["infl_ret"], fyr)
         if k % Y == 0:
@@ -236,7 +388,9 @@ def simulate(
                 0.0,
             )
             start = snap["start"]
-            wr_mask = (alive0_f > 0.5) & ~dies
+            wr_mask = (alive0_f > 0.5) & ~dies_regular
+            if statics.mortality:
+                wr_mask = wr_mask & living  # fully-lived years only
             wr_value = torch.where(
                 start > EPS,
                 yr * snap["infl_ret"] / torch.clamp(start, min=EPS) * 100.0,
@@ -249,8 +403,9 @@ def simulate(
 
     if track:
         for m in range(1, w + 1):
-            st = accum_month(m, st)
+            st = accum_month(m, st, draw(m))
         # retirement snapshot (straight-line, once, right after month W)
+        st = snapshot(st, torch.ones_like(w_t, dtype=torch.bool))
         snap["start"] = st["b1"] + st["b2"]
         snap["infl_ret"] = st["infl"]
         if partial_wy:
@@ -258,12 +413,13 @@ def simulate(
             traj[slot] = snap["start"][0]
             price[slot] = snap["infl_ret"][0]
         for m in range(w + 1, t_end_list[0] + 1):
-            st = ret_month(m, st)
+            st = ret_month(m, st, draw(m))
     else:
         w_min, w_max = min(w_list), max(w_list)
         for m in range(1, max(t_end_list) + 1):
-            acc_st = accum_month(m, st) if m <= w_max else None
-            ret_st = ret_month(m, st) if m > w_min else None
+            g = draw(m)
+            acc_st = accum_month(m, st, g) if m <= w_max else None
+            ret_st = ret_month(m, st, g) if m > w_min else None
             if ret_st is None:
                 st = acc_st
             elif acc_st is None and m <= min(t_end_list):
@@ -280,6 +436,8 @@ def simulate(
                         v = torch.where(in_acc, acc_st[key], v)
                     new[key] = v
                 st = new
+            if m <= w_max:
+                st = snapshot(st, w_t == m)
 
     out = {
         "success": st["alive"],

@@ -34,7 +34,6 @@ from ..ops.shocks import BLOCK_PATHS
 from ..ops.stats import summarize
 from ..timing import expected_trajectory_length
 from .cuda_kernel import (
-    check_slice,
     pack_params,
     probe as probe_kernel,
     require_device,
@@ -120,7 +119,6 @@ class Engine:
         self.dtype = dtype
         self.retirement_years = int(self.config.retirement_years)
         self.statics = statics_from_config(self.config)
-        check_slice(self.statics)
         self.params = SimParams.from_config(
             self.config, dtype=torch.float64, device=self.device
         )

@@ -36,7 +36,6 @@ from ..ops.quantiles import exact_quantiles
 from .cuda_kernel import (
     Statics,
     check_grid_statics,
-    check_slice,
     grid,
     pack_grid,
     require_device,
@@ -147,7 +146,6 @@ def run_scenario_grid(
     if any(m < 0 for m in working_months):
         raise ValueError("working_months must be >= 0")
     statics = grid_statics(configs)  # raises on mixed structure
-    check_slice(statics)  # raises NotImplementedError outside the slice
     require_device(device)
     device = torch.device(device)
     dtype = torch.float32 if device.type == "cuda" else torch.float64

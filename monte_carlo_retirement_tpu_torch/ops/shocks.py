@@ -8,7 +8,21 @@ structure (``pallas_kernel.py:469-485``): candidates never enter the key,
 so working-month candidates share their shocks (common random numbers), and
 a run split into chunks of whole blocks draws exactly what one dispatch
 draws. Words 0, 1 and 2 of each draw become the equity, independent
-inflation and premium normals; word 3 is reserved for the crash draw.
+inflation and premium normals.
+
+The extensions draw beside that stream, never from it, so the base normals
+are bit for bit the same with them on or off (``docs/CONFIG.md:112-116``):
+  * market crashes (``pallas_kernel.py:507-528``): the crash uniform ``u``
+    is word 3 of the month's draw; the crash normal ``z_j`` is word 0 of a
+    second draw at counter ``(month, lane, 1, 0)`` under the same key;
+  * longevity (``pallas_kernel.py:530-556``): one uniform per path, word 0
+    of the draw with key ``(stream_seed ^ 668265261, global_block)`` (the
+    Pallas kernel's salt) and counter ``(0, lane, 2, 0)``, which no month
+    draw uses (months start at 1);
+  * antithetic pairing (``pallas_kernel.py:475-482``): global blocks 2k and
+    2k+1 share key block k; the odd block negates every normal and
+    reflects every uniform, ``u -> 1 - u``.
+Uniforms take 23 bits, as the Pallas ``_uniform``: ``(bits >> 9) * 2^-23``.
 
 Each word becomes a normal through exactly the Pallas ``_normal`` transform
 (``pallas_kernel.py:283-300``) in float32: 23 bits -> x uniform on
@@ -23,7 +37,7 @@ bits; the 32x32 -> 64 bit product overflows int64, so it is split into
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,8 +50,13 @@ PHILOX_W1 = 0xBB67AE85
 PHILOX_ROUNDS = 10
 _MASK32 = 0xFFFFFFFF
 
+MORT_SALT = 668265261  # pallas_kernel.py:544
+CRASH_COUNTER = 1  # third counter word of the crash normal's draw
+MORT_COUNTER = 2  # third counter word of the longevity draw
+
 # The Pallas sampler's constants (pallas_kernel.py:116-130).
 INV_2_22 = 1.0 / float(1 << 22)
+INV_2_23 = 1.0 / float(1 << 23)
 X_OFFSET = 1.0 / float(1 << 23) - 1.0
 ZPOLY = (
     0.0001782477551054519, -0.0028148533007281555,
@@ -88,6 +107,12 @@ def bits_to_normal(bits: torch.Tensor) -> torch.Tensor:
     return acc * x
 
 
+def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 words (int64) -> uniforms on [0, 1 - 2^-23], float32 (exact),
+    the Pallas ``_uniform``."""
+    return (bits >> 9).to(torch.float32) * INV_2_23
+
+
 def path_keys(
     n_paths: int, block_offset: int, device
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -103,7 +128,65 @@ def month_words(seed: int, gblock, month: int, lane):
     )
 
 
+def pair_blocks(gblock: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Antithetic pairing: (key block, sign) per path — blocks 2k and 2k+1
+    draw key block k; the odd one's sign is -1 (float32)."""
+    sign = (1 - 2 * (gblock & 1)).to(torch.float32)
+    return gblock >> 1, sign
+
+
 def month_normals(seed: int, gblock, month: int, lane) -> torch.Tensor:
     """(3, n) float32 normals (z_eq, z_ind, z_prem) for one month."""
-    w0, w1, w2, _w3 = month_words(seed, gblock, month, lane)
-    return torch.stack([bits_to_normal(w) for w in (w0, w1, w2)])
+    return month_draws(seed, gblock, month, lane)
+
+
+def month_draws(seed: int, gblock, month: int, lane, jumps: bool = False,
+                sign: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One month's draws, float32: (3, n) normals (z_eq, z_ind, z_prem), or
+    with ``jumps`` (5, n) adding the crash uniform and normal (u, z_j).
+    ``sign`` (the antithetic pairing's, per path) negates the normals and
+    reflects the uniform where it is -1."""
+    w0, w1, w2, w3 = month_words(seed, gblock, month, lane)
+    z = [bits_to_normal(w) for w in (w0, w1, w2)]
+    if jumps:
+        u = bits_to_uniform(w3)
+        z_j = bits_to_normal(philox4x32_10(
+            int(month) & _MASK32, lane, CRASH_COUNTER, 0, int(seed) & _MASK32,
+            gblock)[0])
+        z += [u, z_j]
+    if sign is not None:
+        z = [v * sign for v in z]
+        if jumps:
+            z[3] = torch.where(sign > 0, u, 1.0 - u)
+    return torch.stack(z)
+
+
+def mortality_uniform(seed: int, gblock, lane,
+                      sign: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The longevity uniform of each path, float32, reflected where the
+    antithetic ``sign`` is -1."""
+    w = philox4x32_10(0, lane, MORT_COUNTER, 0,
+                      (int(seed) ^ MORT_SALT) & _MASK32, gblock)[0]
+    u = bits_to_uniform(w)
+    if sign is not None:
+        u = torch.where(sign > 0, u, 1.0 - u)
+    return u
+
+
+def gompertz_remaining_months(u, g0, b12, cap, working_months):
+    """Remaining lifetime in retirement months from the longevity uniform
+    (the JAX ``ops/shocks.py::gompertz_remaining_months``): the Gompertz
+    inverse survival conditioned on being alive at the retirement date,
+    with g_ret = g0 - W / b12,
+        t = b12 * ln(1 - ln(u) * exp(g_ret)),
+    in the overflow-stable two-branch form, capped at ``cap - W``. u = 0
+    gives +inf, absorbed by the cap; rows with b12 = 0 (no rule) return
+    +inf. Computed in the dtype of ``u``; the parameters broadcast."""
+    w_f = torch.as_tensor(working_months, device=u.device).to(u.dtype)
+    g_ret = g0 - w_f / b12
+    log_u = torch.log(u)
+    t_low = torch.log1p(-log_u * torch.exp(g_ret))
+    t_high = g_ret + torch.log(torch.exp(-g_ret) - log_u)
+    t = b12 * torch.where(g_ret > 0, t_high, t_low)
+    d = torch.minimum(t, torch.clamp(cap - w_f, min=0.0))
+    return torch.where(b12 > 0, d, torch.full_like(d, float("inf")))

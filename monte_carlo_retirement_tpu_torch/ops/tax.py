@@ -1,8 +1,9 @@
 """The month loop's tax algebra in torch (plain versions of the kernel body).
 
 Operation for operation the JAX Pallas body's helpers — ``profile``
-(``pallas_kernel.py:587-598``), ``rebalance_lite`` (``:600-638``) and the
-capacity-limited withdrawal split pro-rata by net capacity (``:975-1000``) —
+(``pallas_kernel.py:587-598``), ``rebalance_lite`` (``:600-638``), the
+capacity-limited withdrawal split pro-rata by net capacity (``:975-1000``)
+and the annual mark-to-market settlement ``annual_tax`` (``:645-690``) —
 with IEEE division where Pallas used its approximate reciprocal. The
 average-cost-basis invariant makes one per-asset sale profile serve the
 capacity check, the withdrawal and the rebalance: realized tax is exactly
@@ -132,3 +133,28 @@ def withdraw_pro_rata(
     b2 = torch.where(e2, 0.0, b2)
     c2 = torch.where(e2, 0.0, c2)
     return b1, c1, b2, c2, gross1 + gross2, net
+
+
+def annual_tax(b1, c1, b2, c2, g1a, g2a, a1, use1, r1, bill1, ann1, use2, r2,
+               bill2, ann2, rtol):
+    """Settle one completed mark-to-market tax period: the bill on each
+    billed asset's positive period gains ``g*a`` (market P&L only) at its
+    annual rate, paid from both assets pro-rata by net capacity — the
+    withdrawal's one sale fraction — then an exact-post-tax rebalance
+    toward ``a1``. ``bill1``/``bill2`` are the Statics flags, ``rtol`` the
+    dtype's :func:`fail_rtol`. Returns (b1, c1, b2, c2, tax_failed)."""
+    due1 = torch.clamp(g1a, min=0.0) * ann1 if bill1 else torch.zeros_like(b1)
+    due2 = torch.clamp(g2a, min=0.0) * ann2 if bill2 else torch.zeros_like(b2)
+    total_due = due1 + due2
+    prof1 = profile(b1, c1, use1, r1)
+    prof2 = profile(b2, c2, use2, r2)
+    tnc = prof1[2] + prof2[2]
+    payment = torch.minimum(total_due, tnc)
+    tol = EPS + rtol * (total_due + tnc)
+    do_pay = (tnc > EPS) & (payment > 0)
+    b1, c1, b2, c2, _gross, _net = withdraw_pro_rata(
+        b1, c1, b2, c2, total_due, prof1, prof2, do_pay
+    )
+    failed = payment < total_due - tol
+    b1, c1, b2, c2 = monthly_rebalance(b1, c1, b2, c2, a1, use1, r1, use2, r2)
+    return b1, c1, b2, c2, failed

@@ -38,7 +38,14 @@ from monte_carlo_retirement_tpu_torch.models.retirement import (  # noqa: E402
     stack_params,
 )
 from tests.conftest import base_config_dict, binomial_sigma_pct  # noqa: E402
-from tests.test_torch_kernel import CASES  # noqa: E402
+from tests.test_torch_kernel import (  # noqa: E402
+    CASES,
+    CRASHES,
+    EXT_R,
+    EXT_W,
+    assert_probe_close,
+    ext_config,
+)
 
 torch.set_num_threads(2)
 N = pk.BLOCK_ROWS * 128
@@ -316,35 +323,67 @@ def test_grid_guards_mirror_jax():
         sb.run_scenario_grid([untaxed], [-1], 16, device="cpu")
 
 
-@pytest.mark.parametrize(
-    "overrides",
-    [
-        dict(inv1_use_realized_gains_tax_system=False,
-             inv1_annual_tax_on_gains_rate=0.2),
-        dict(other_income_streams=[{
-            "name": "Fixed", "monthly_amount_today": 500.0, "start_at_age": 45.0,
-            "duration_years": None, "inflation_indexed": False, "tax_rate": 0.1}]),
-        dict(antithetic=True),
-        dict(allocation_inv1_final_pct=0.3),
-        dict(spending_guardrails={"upper_wr_pct": 6.0, "lower_wr_pct": 3.0}),
-        dict(market_crashes={"frequency_per_year": 0.2, "mean_drop_pct": 20.0}),
-        dict(longevity={"mode_age": 88.0}),
-    ],
-    ids=["bills", "fixed", "antithetic", "glide", "guardrails", "jumps",
-         "mortality"],
-)
-def test_grid_statics_outside_the_slice_raise(overrides):
-    cfg = Config(**base_config_dict(retirement_years=2, **overrides))
-    before = dict(ck.PLAIN_CALLS)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A8"):
-        sb.run_scenario_grid([cfg, cfg], [0, 0], 64, device="cpu")
-    statics = ck.statics_from_config(cfg)
-    packed = ck.pack_grid(stack_params([cfg]), 1, [0], 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A8"):
-        ck.grid(packed, statics, 2, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A8"):
-        ck.simulate(packed, statics, 2, 64)
-    assert ck.PLAIN_CALLS == before
+# Per extension, how row 1 of the grid varies the extension's own
+# parameter (rows 2 and 3 vary months, means, allocation and tax rates).
+EXT_ROW_VARIATION = {
+    "bills": dict(inv1_annual_tax_on_gains_rate=0.35),
+    "fixed": dict(monthly_expenses=3_600.0),
+    "antithetic": dict(monthly_expenses=3_600.0),
+    "glide": dict(allocation_inv1_final_pct=0.8),
+    "guardrails": dict(spending_guardrails={"upper_wr_pct": 9.0,
+                                            "lower_wr_pct": 4.0}),
+    "jumps": dict(market_crashes={**CRASHES, "frequency_per_year": 3.0}),
+    "mortality": dict(longevity={"mode_age": 47.0, "dispersion_years": 6.0,
+                                 "max_age": 95.0}),
+}
+
+
+@pytest.mark.parametrize("name", list(EXT_ROW_VARIATION))
+def test_grid_extension_plain_matches_pallas_per_row(name):
+    """The grid's plain loop under each extension's Statics, one row per
+    scenario with its own months and parameters, vs JAX pallas_simulate on
+    each row's own config and the same six planes of numpy draws."""
+    W, R = EXT_W, EXT_R
+    rows = [(0, {}), (4, EXT_ROW_VARIATION[name]),
+            (9, dict(inv1_returns_mean=0.05, allocation_inv1_pct=0.8)),
+            (2, dict(inv1_realized_gains_tax_rate=0.3,
+                     inv2_realized_gains_tax_rate=0.25,
+                     monthly_expenses=2_700.0))]
+    months = [W + dw for dw, _ in rows]
+    cfgs = [ext_config(name, seed=5, **over) for _, over in rows]
+    configs = [Config(**c.model_dump(by_alias=True)) for c in cfgs]
+    statics = sb.grid_statics(configs)
+    T = max(months) + 12 * R
+    z = np.random.default_rng(len(name) + 40).standard_normal(
+        (T, 6, N)).astype(np.float32)
+    z[:, 3] = np.random.default_rng(1).uniform(size=(T, N))
+    z[:, 5] = np.random.default_rng(2).uniform(size=(T, N))
+    z_jax = jnp.asarray(z.reshape(T, 6, pk.BLOCK_ROWS, 128))
+    ref = []
+    for cfg, w in zip(cfgs, months):
+        jparams = JaxParams.from_config(cfg, dtype=jnp.float32)
+        succ_j, final_j = pk.pallas_simulate(
+            jparams, w, 0, n_paths=N, retirement_years=R,
+            n_streams=jparams.n_streams, statics=pk.statics_from_config(cfg),
+            shocks=z_jax, with_shocks=True, interpret=True,
+        )
+        ref.append((np.asarray(succ_j) > 0.5, np.asarray(final_j)))
+    assert len({round(float(s.mean()), 3) for s, _ in ref}) > 1  # rows differ
+    shocks = torch.from_numpy(z)
+    for dtype in (torch.float32, torch.float64):
+        packed = ck.pack_grid(stack_params(configs), 0, months, R, dtype=dtype)
+        out = ck.grid_plain(packed, statics, R, N, shocks=shocks)
+        for k, (succ_j, final_j) in enumerate(ref):
+            succ_p = out.success[k].numpy() > 0.5
+            assert int(out.counts[k]) == int(succ_p.sum())
+            assert_probe_close(succ_p, out.final_balance[k].numpy(), succ_j,
+                               final_j, f"{name} {dtype} row {k}")
+        # Row 0 alone through simulate (kernel 3's counterpart), exactly.
+        one = ck.pack_params(SimParams.from_config(configs[0]), 0, [months[0]],
+                             R, dtype=dtype)
+        sim = ck.simulate_plain(one, statics, R, N, shocks=shocks)
+        assert torch.equal(sim.success, out.success[0])
+        assert torch.equal(sim.final_balance, out.final_balance[0])
 
 
 def test_grid_wrappers_on_a_cuda_tensor_without_a_card_raise():

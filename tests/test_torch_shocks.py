@@ -128,3 +128,55 @@ def test_stream_moments():
     w = torch.stack(shocks.month_normals(5, gblock, 7, lane).double().unbind(0))
     corr = np.corrcoef(w.numpy())
     assert np.abs(corr - np.eye(3)).max() < 5 / np.sqrt(n_paths)
+
+
+def test_crash_and_longevity_draws_follow_their_counters():
+    """The crash uniform is word 3 of the month's draw, the crash normal
+    word 0 of counter (month, lane, 1, 0), the longevity uniform word 0 of
+    key (seed ^ 668265261, block) at counter (0, lane, 2, 0); uniforms are
+    the top 23 bits times 2^-23, as the Pallas ``_uniform``."""
+    gblock, lane = shocks.path_keys(2 * 4096 + 3, block_offset=5, device="cpu")
+    seed, month = 77, 13
+    d = shocks.month_draws(seed, gblock, month, lane, jumps=True)
+    u_mort = shocks.mortality_uniform(seed, gblock, lane)
+    for p in (0, 4095, 4096, 2 * 4096 + 2):
+        key = [seed, p // 4096 + 5]
+        w = _philox_reference([month, p % 4096, 0, 0], key)
+        wj = _philox_reference([month, p % 4096, 1, 0], key)
+        wm = _philox_reference([0, p % 4096, 2, 0], [seed ^ 668265261, key[1]])
+        assert float(d[3, p]) == (w[3] >> 9) / 2.0**23
+        assert float(d[4, p]) == float(_numpy_normal(np.array([wj[0]]))[0])
+        assert float(u_mort[p]) == (wm[0] >> 9) / 2.0**23
+    # The base normals are the same words with the crash draws on.
+    assert torch.equal(d[:3], shocks.month_normals(seed, gblock, month, lane))
+    assert d.dtype == torch.float32 and float(d[3].max()) < 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_gompertz_remaining_months_matches_jax(dtype):
+    import jax.numpy as jnp
+
+    from monte_carlo_retirement_tpu.ops.shocks import (
+        gompertz_remaining_months as jax_gompertz,
+    )
+
+    rng = np.random.default_rng(8)
+    u = np.concatenate([rng.uniform(size=2000), [0.0, 2.0**-23, 0.5,
+                                                  1.0 - 2.0**-23]])
+    # rows: (g0, b12, cap, W) — young and old retirees (both branches), a
+    # binding cap, and a sentinel row without a rule (b12 = 0)
+    rows = np.array([[4.8, 120.0, 840.0, 0.0], [4.8, 120.0, 840.0, 300.0],
+                     [0.5, 48.0, 360.0, 200.0], [2.0, 60.0, 100.0, 24.0],
+                     [0.0, 0.0, 3.0e7, 12.0]])
+    want = np.asarray(jax_gompertz(
+        jnp.asarray(u, dtype)[None], *(jnp.asarray(rows[:, i:i + 1], dtype)
+                                        for i in range(4)), getattr(jnp, dtype)))
+    t = lambda a: torch.as_tensor(a, dtype=getattr(torch, dtype))  # noqa: E731
+    got = shocks.gompertz_remaining_months(
+        t(u)[None], *(t(rows[:, i:i + 1]) for i in range(3)), t(rows[:, 3:4])
+    ).numpy()
+    assert np.isinf(got[-1]).all() and (got[:-1] <= rows[:-1, 2:3]).all()
+    # Relative round-off of the log chain, or of a month when t is tiny.
+    rtol, atol = (1e-12, 1e-9) if dtype == "float64" else (2e-6, 1e-4)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+    assert got[0, -4] == rows[0, 2]  # u = 0: the longest life, the cap
