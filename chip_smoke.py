@@ -8,8 +8,11 @@ result):
   1. the card (nvidia-smi name and power limit), and the kernels built with
      nvcc from engine/csrc into build/torch_kernels/: one month-loop library
      per Statics the run uses (config.json's, each extension alone, all
-     extensions together) and the stream check, one nvcc each, all started
-     together; each library's registers and spills per kernel (ptxas);
+     extensions together), the stream check and the op-count cubins of
+     config.json's and the all-on Statics, one nvcc each, all started
+     together; each library's registers and spills per kernel (ptxas), the
+     dynamic shared memory of phase 6's tiled launches, and the SASS pipe
+     loads of a draw and a month step (engine/bound.py) behind every bound;
   2. the device draws vs ops/shocks.py in torch on the card: the month,
      crash and longevity Philox words equal, the crash and longevity
      uniforms equal, the normals within 2e-6 relative;
@@ -38,9 +41,14 @@ result):
      scenario grid (config.json, expenses 4,000-14,000 x equity mean
      0.06-0.14, W=231, R=50, 1M paths): the grid kernel alone, its plain
      version, the chunk's statistics; and the wall time of the whole
-     256-variant x 1M grid through run_scenario_grid;
-  7. grid_kernel vs grid_plain on the card: that 16-row chunk at 1M paths
-     and a ragged 3 rows x 1,000 paths — per-row success within
+     256-variant x 1M grid through run_scenario_grid. Each kernel's time
+     beside its bound (engine/bound.py: the least time for this launch's
+     work on this card), and the per-row survivor counts and float64
+     final-balance sums of the slice and all-on probe and the grid chunk;
+  7. grid_kernel vs grid_plain on the card: that 16-row chunk at 1M paths,
+     a ragged 3 rows x 1,000 paths and 11 rows whose W spread over 0-480
+     at 65,536 paths (a block's rows end at different months; 11 rows is
+     no multiple of a block's rows) — per-row success within
      max(0.3, 100/n) points, flags mismatching below 3e-3, the kernel's
      counts equal to its own flags, dust-aware final balances — and each
      row equal, flag for flag, to the probe kernel on that row's own block;
@@ -66,8 +74,10 @@ result):
      bit-equal); antithetic pairing (the even blocks of an antithetic
      probe bit-equal to an iid probe's blocks, the odd ones not).
 
-The kernels' lines come before the last two: {"kernels": [...]}, then the
-card's name and power limit on their own line; the last line is
+The kernels' line comes before the last two: {"kernels": [...]}, one row
+per kernel with its launches on the main path (phase 5) and on the grid
+path (phase 8), its time, bound and plain version's time; then the card's
+name and power limit on their own line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -270,22 +280,41 @@ def _statics_label(st) -> str:
             f"/{caps or '-'} {'+'.join(on) or 'no extensions'}")
 
 
+def _max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _bound(report, kind, work, out_bytes, label="slice"):
+    """(bound ms, bound_by) of one launch from this run's SASS loads."""
+    from monte_carlo_retirement_tpu_torch.engine import bound
+
+    return bound.bound_ms(kind, work, report["parts"][label], out_bytes,
+                          report["sm_count"], report["clock_hz"])
+
+
 def phase_build(report):
     import torch
-    from monte_carlo_retirement_tpu_torch.engine import _build
+    from monte_carlo_retirement_tpu_torch.engine import _build, bound
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
 
     report["card"] = _card_line()
     print(f"[1] card: {report['card']} | torch: {torch.cuda.get_device_name(0)}"
           f" | torch {torch.__version__} cuda {torch.version.cuda}")
     statics = _run_statics()
+    counted = {"slice": ck.statics_from_config(_config()),
+               "all-on": ck.statics_from_config(_config(**dict(ALL_ON)))}
     t0 = time.perf_counter()
-    paths = _build.build_many(statics + [None])
+    paths = _build.build_many(statics + [None], list(counted.values()))
     for st in statics:
         _build.load(st)
     _build.load()
     took = time.perf_counter() - t0
-    print(f"[1] {len(paths)} libraries built from {os.path.dirname(CU_SOURCE)} "
-          f"(one nvcc each, started together) into "
+    print(f"[1] {len(paths)} libraries and op-count cubins built from "
+          f"{os.path.dirname(CU_SOURCE)} (one nvcc each, started together) into "
           f"{os.path.relpath(os.path.dirname(paths[0]), REPO)} in {took:.1f} s")
     report["ptxas"] = {}
     for st, so in zip(statics + [None], paths):
@@ -294,6 +323,29 @@ def phase_build(report):
         report["ptxas"][label] = summary
         print(f"[1] {os.path.basename(so)}: {label}: " + ", ".join(
             f"{k} {r} regs, spills {a}/{b} B" for k, (r, a, b) in summary.items()))
+    st = counted["slice"]
+    print("[1] dynamic shared memory of phase 6's tiled launches: " + ", ".join(
+        f"{what} {plan.rows_per_block} rows x {ck.WARP} paths x "
+        f"{plan.months_per_chunk} months, {plan.threads} threads, "
+        f"{plan.smem_bytes} B" for what, plan in (
+            ("probe", ck.tile_plan(16, N_FULL, st, "probe")),
+            ("grid chunk", ck.tile_plan(GRID_SIDE, N_FULL, st, "grid")),
+            ("simulate", ck.tile_plan(1, N_FULL, st, "grid")))))
+    report["sm_count"] = torch.cuda.get_device_properties(0).multi_processor_count
+    report["clock_hz"] = _max_sm_clock_hz()
+    report["parts"] = {}
+    for label, st in counted.items():
+        sass = _build.count_sass(st)
+        pipes = bound.sass_pipes(sass)
+        report["parts"][label] = parts = bound.part_loads(sass)
+        print(f"[1] SASS of one step ({label}; main body, by pipe): " + "; ".join(
+            f"{name[6:]} {pipes[name]}" for name in bound.PARTS))
+        print(f"[1]   SM-cycles per thread (busiest pipe or issue; yearly code "
+              f"/12): " + ", ".join(f"{k} {max(v.values()):.4f}"
+                                     for k, v in parts.items()))
+    print(f"[1] bound rates: {report['sm_count']} SMs at "
+          f"{report['clock_hz'] / 1e6:.0f} MHz (nvidia-smi clocks.max.sm), "
+          f"{bound.MEMORY_BYTES_PER_S / 1e12:.2f} TB/s")
 
 
 def phase_normals(report):
@@ -578,12 +630,30 @@ def phase_main_path(report):
                     cfg.num_simulations_search)
         check_full(report, f"5{label}", sim.engine, months, n)
     report["launches"] = dict(launches)
+    report["launches_main"] = dict(launches)
     print(f"[5] launches over the three main-path runs: {launches}")
+
+
+def _print_bounds(times, bounds, names):
+    for name in names:
+        ms, by = bounds[name]
+        print(f"[6]   {name}: bound {ms:.3f} ms ({by}); kernel {times[name]:.3f} ms "
+              f"is {times[name] / ms:.2f}x the bound ({ms / times[name]:.1%} of it)")
+
+
+def _print_rows(what, out):
+    """Per-row survivor counts and float64 final-balance sums (the
+    parent-tree comparison reads these)."""
+    print(f"[6]   {what}: survivors per row {out.counts.tolist()}")
+    sums = out.final_balance.double().sum(dim=1).tolist()
+    print(f"[6]   {what}: float64 final-balance sum per row "
+          f"[{', '.join(f'{v:.17g}' for v in sums)}]")
 
 
 def phase_timings(report):
     import numpy as np
     import torch
+    from monte_carlo_retirement_tpu_torch.engine import bound
     from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
     from monte_carlo_retirement_tpu_torch.engine.runner import Engine
     from monte_carlo_retirement_tpu_torch.engine.scenario_batch import (
@@ -623,8 +693,20 @@ def phase_timings(report):
         "simulate_plain": _time_ms(
             lambda: ck.simulate_plain(full_packed, eng.statics, R, n), repeats=2),
     }
-    succ = ck.probe(probe_packed, eng.statics, R, n).counts[0].item() / n * 100
+    probe_out = ck.probe(probe_packed, eng.statics, R, n)
+    succ = probe_out.counts[0].item() / n * 100
     card = report["card"]
+    T = 12 * R  # months of a W=0 row
+    months16 = list(range(16))
+    bounds = {
+        "probe": _bound(report, "probe", ck.tile_work(
+            ck.tile_plan(16, n, eng.statics, "probe"), months16,
+            [w + T for w in months16]), 16 * n * 8),
+        "full": _bound(report, "full", bound.full_work(n, 0, T),
+                       4 * n * (7 + 2 * L + R)),
+        "simulate": _bound(report, "grid", ck.tile_work(
+            ck.tile_plan(1, n, eng.statics, "grid"), [0], [T]), n * 8),
+    }
     print(f"[6] 1M paths x 600 months, W=0 (probe: 16 candidates, months 0-15), "
           f"CUDA events, warm, min of 5 (plain simulate: min of 2), on {card}:")
     print(f"[6]   probe kernel {times['probe']:.3f} ms | plain "
@@ -636,6 +718,8 @@ def phase_timings(report):
     print(f"[6]   simulate (grid kernel, one row) {times['simulate']:.3f} ms | "
           f"plain {times['simulate_plain']:.3f} ms")
     print(f"[6]   success at W=0: {succ:.3f}%")
+    _print_bounds(times, bounds, ("probe", "full", "simulate"))
+    _print_rows("slice probe", probe_out)
 
     # The same scenario with every extension on (ALL_ON).
     eng_on = Engine(_config(retirement_years=50, initial_balance=1_500_000.0,
@@ -653,7 +737,13 @@ def phase_timings(report):
     times["full_plain_all_on"] = _time_ms(
         lambda: ck.simulate_full_plain(full_on, st_on, R, n, L), repeats=1,
         warm=False)
-    succ_on = ck.probe(probe_on, st_on, R, n).counts[0].item() / n * 100
+    probe_on_out = ck.probe(probe_on, st_on, R, n)
+    succ_on = probe_on_out.counts[0].item() / n * 100
+    bounds["probe_all_on"] = _bound(report, "probe", ck.tile_work(
+        ck.tile_plan(16, n, st_on, "probe"), months16,
+        [w + T for w in months16]), 16 * n * 8, "all-on")
+    bounds["full_all_on"] = _bound(report, "full", bound.full_work(n, 0, T),
+                                   4 * n * (7 + 2 * L + R), "all-on")
     print(f"[6] the same with every extension on ({_statics_label(st_on)}; "
           f"plain: one cold call):")
     print(f"[6]   probe kernel {times['probe_all_on']:.3f} ms | plain "
@@ -661,6 +751,8 @@ def phase_timings(report):
     print(f"[6]   full kernel {times['full_all_on']:.3f} ms | plain "
           f"{times['full_plain_all_on']:.3f} ms")
     print(f"[6]   success at W=0: {succ_on:.3f}%")
+    _print_bounds(times, bounds, ("probe_all_on", "full_all_on"))
+    _print_rows("all-on probe", probe_on_out)
     # Each extension alone: what it adds to the probe (min of 2).
     by_ext = {}
     for name, over in EXTENSIONS.items():
@@ -683,6 +775,9 @@ def phase_timings(report):
                           GR, device="cuda")
     out = ck.grid(packed, statics, GR, n)
     times["grid"] = _time_ms(lambda: ck.grid(packed, statics, GR, n))
+    bounds["grid"] = _bound(report, "grid", ck.tile_work(
+        ck.tile_plan(len(configs), n, statics, "grid"), months,
+        [w + 12 * GR for w in months]), len(configs) * n * 8)
     times["grid_stats"] = _time_ms(
         lambda: _grid_stats(out.success, out.final_balance, n))
     times["grid_plain"] = _time_ms(
@@ -710,10 +805,13 @@ def phase_timings(report):
           f"{walls[-1]:.1f} ms (first run {walls[0]:.1f} ms); 16 chunks x "
           f"(kernel + statistics) = {16 * per_chunk:.1f} ms, the rest "
           f"{walls[-1] - 16 * per_chunk:.1f} ms host and copies")
+    _print_bounds(times, bounds, ("grid",))
+    _print_rows("grid chunk", out)
     if not (np.isfinite(res.success_probability).all()
             and res.final_balance_percentiles.shape == (len(all_configs), 5)):
         raise AssertionError("[6] the 256-variant grid's results are malformed")
     report["times"] = times
+    report["bounds"] = bounds
 
 
 def phase_grid(report):
@@ -728,6 +826,13 @@ def phase_grid(report):
         {"monthly_expenses": 9_000.0, "inv1_realized_gains_tax_rate": 0.2},
     )]
     check_grid(report, "7b", ragged, [0, 120, GRID_W], 1_000)
+    # 11 rows (no multiple of a block's rows) whose W spread over 0-480, so
+    # the rows of a block end at different months.
+    import numpy as np
+
+    spread = [Config(**{**raw, **over}) for over in _grid_overrides()[5::24]]
+    check_grid(report, "7c", spread,
+               [int(m) for m in np.linspace(0, 480, len(spread)).round()], N_CHECK)
 
 
 def phase_modes(report):
@@ -750,6 +855,7 @@ def phase_modes(report):
 
     raw = _grid_raw()
     launches = report["launches"]
+    grid_path = report["launches_grid"] = {}
 
     def counted(label, fn):
         ck.reset_counts()
@@ -762,6 +868,7 @@ def phase_modes(report):
             raise AssertionError(f"[{label}] plain versions ran: {plain}")
         for name, count in ran.items():
             launches[name] = launches.get(name, 0) + count
+            grid_path[name] = grid_path.get(name, 0) + count
         print(f"[{label}] wall {wall:.2f} s; launches {ran}")
         return out, ran
 
@@ -947,35 +1054,41 @@ def main() -> int:
         raise AssertionError("the port imported jax")
 
     times, launches = report["times"], report["launches"]
+    main, grid_path, bounds = (report["launches_main"], report["launches_grid"],
+                               report["bounds"])
+    pallas = "monte_carlo_retirement_tpu/engine/pallas_kernel.py"
+
+    def row(name, key, replaces, err, ms, plain, bound_key, **extra):
+        return {"name": name, "route": "cuda", "source": CU_SOURCE,
+                "replaces": f"{pallas}:{replaces}", "launches": launches[key],
+                "launches_main_path": main.get(key, 0),
+                "launches_grid_path": grid_path.get(key, 0),
+                "max_abs_err": report[err], "ms": times[ms],
+                "plain_ms": times[plain], "bound_ms": bounds[bound_key][0],
+                "bound_by": bounds[bound_key][1], "library_ms": None, **extra}
+
     kernels = [
-        {"name": "probe_kernel", "route": "cuda", "source": CU_SOURCE,
-         "replaces": "monte_carlo_retirement_tpu/engine/pallas_kernel.py:1325",
-         "launches": launches["probe"], "max_abs_err": report["probe_err"],
-         "ms": times["probe"], "plain_ms": times["probe_plain"],
-         "ms_all_on": times["probe_all_on"],
-         "plain_ms_all_on": times["probe_plain_all_on"]},
-        {"name": "full_kernel", "route": "cuda", "source": CU_SOURCE,
-         "replaces": "monte_carlo_retirement_tpu/engine/pallas_kernel.py:1405",
-         "launches": launches["full"], "max_abs_err": report["full_err"],
-         "ms": times["full"], "plain_ms": times["full_plain"],
-         "ms_all_on": times["full_all_on"],
-         "plain_ms_all_on": times["full_plain_all_on"]},
-        {"name": "grid_kernel", "route": "cuda", "source": CU_SOURCE,
-         "replaces": "monte_carlo_retirement_tpu/engine/pallas_kernel.py:1567",
-         "launches": launches["grid"], "max_abs_err": report["grid_err"],
-         "ms": times["grid"], "plain_ms": times["grid_plain"]},
-        {"name": "grid_kernel (simulate: one row)", "route": "cuda",
-         "source": CU_SOURCE,
-         "replaces": "monte_carlo_retirement_tpu/engine/pallas_kernel.py:1247",
-         "launches": launches["simulate"], "max_abs_err": report["sim_err"],
-         "ms": times["simulate"], "plain_ms": times["simulate_plain"]},
+        row("probe_kernel", "probe", 1325, "probe_err", "probe", "probe_plain",
+            "probe", ms_all_on=times["probe_all_on"],
+            plain_ms_all_on=times["probe_plain_all_on"],
+            bound_ms_all_on=bounds["probe_all_on"][0]),
+        row("full_kernel", "full", 1405, "full_err", "full", "full_plain", "full",
+            ms_all_on=times["full_all_on"],
+            plain_ms_all_on=times["full_plain_all_on"],
+            bound_ms_all_on=bounds["full_all_on"][0]),
+        row("grid_kernel", "grid", 1567, "grid_err", "grid", "grid_plain", "grid"),
+        row("grid_kernel (simulate: one row)", "simulate", 1247, "sim_err",
+            "simulate", "simulate_plain", "simulate"),
     ]
     print("max_abs_err: probe, grid and simulate = largest |success % "
           "difference| over every check of that kernel; full = largest "
           "|withdrawal-rate difference| (points) over every full check; "
-          "ms = the kernel alone (phase 6); launches = the main path "
-          "(phase 5), the analysis modes (8a-d) and bench.py's workload (8e); "
-          "ms_all_on / plain_ms_all_on = the same under the all-on Statics")
+          "ms = the kernel alone (phase 6); bound_ms = the least time of that "
+          "launch's work on this card (engine/bound.py, phase 6's shapes); "
+          "library_ms = null: no single PyTorch call computes a month loop; "
+          "launches = the main path (phase 5: launches_main_path) plus the "
+          "analysis modes (8a-d) and bench.py's workload (8e: "
+          "launches_grid_path); *_all_on = the same under the all-on Statics")
     print(json.dumps({"kernels": kernels}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {

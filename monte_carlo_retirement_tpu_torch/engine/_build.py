@@ -16,6 +16,10 @@ stream check (``normals.cu``) is one library of its own.
 The libraries have a plain C interface; every pointer and the stream go
 through ``ctypes.c_void_p``, and every entry returns its launch's
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
+
+Beside a library, a Statics can have its op-count cubin (``op_count.cu``,
+never launched): :func:`count_sass` returns its SASS, which
+``engine/bound.py`` prices into the kernels' bound.
 """
 
 from __future__ import annotations
@@ -30,12 +34,16 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("philox.cuh", "month_loop.cu", "normals.cu")
+SOURCES = ("philox.cuh", "month_loop.cu", "normals.cu", "op_count.cu")
 # No --use_fast_math: division and sqrt stay IEEE. -Xptxas -v only prints
 # each kernel's registers and spills into the build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# The op-count unit: device code only, into a cubin for cuobjdump.
+COUNT_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-cubin",
 )
 NVCC_TIMEOUT_S = 1200
 
@@ -50,18 +58,18 @@ def build_dir() -> Path:
     return Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 
-def _nvcc() -> str:
+def _cuda_tool(name: str) -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     for cand in (
-        os.environ.get("NVCC"),
-        shutil.which("nvcc"),
-        os.path.join(cuda_home, "bin", "nvcc"),
+        os.environ.get(name.upper()),
+        shutil.which(name),
+        os.path.join(cuda_home, "bin", name),
     ):
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError(
-        "nvcc not found (set NVCC or CUDA_HOME); the CUDA kernels are built "
-        "from engine/csrc on the machine with the card"
+        f"{name} not found (set {name.upper()} or CUDA_HOME); the CUDA "
+        "kernels are built from engine/csrc on the machine with the card"
     )
 
 
@@ -73,10 +81,10 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def statics_unit(statics) -> str:
+def statics_unit(statics, source: str = "month_loop.cu") -> str:
     """The generated translation unit of one Statics: each flag as a
-    constant, then the kernels' source. A stream's kind is one int: bit 0
-    CPI-indexed, bit 1 duration-capped."""
+    constant, then ``source`` (the kernels, or the op-count unit). A
+    stream's kind is one int: bit 0 CPI-indexed, bit 1 duration-capped."""
     if len(statics.stream_indexed) != len(statics.stream_capped):
         raise ValueError("stream_indexed and stream_capped differ in length")
     kinds = ", ".join(
@@ -98,7 +106,7 @@ def statics_unit(statics) -> str:
     lines += [
         f"#define MCRT_NS {len(statics.stream_indexed)}",
         f"#define MCRT_STREAM_KINDS {kinds}",
-        '#include "month_loop.cu"',
+        f'#include "{source}"',
     ]
     return "\n".join(lines) + "\n"
 
@@ -111,33 +119,48 @@ def library_path(statics=None) -> Path:
     return build_dir() / f"month_loop_{source_hash()}_{tag}.so"
 
 
-def _start(statics, so: Path):
-    """Write the unit (for a Statics) and start nvcc on it."""
+def count_path(statics) -> Path:
+    """The op-count cubin of ``statics``."""
+    unit = statics_unit(statics, "op_count.cu")
+    tag = hashlib.sha256(unit.encode()).hexdigest()[:12]
+    return build_dir() / f"op_count_{source_hash()}_{tag}.cubin"
+
+
+def _start(statics, out: Path):
+    """Write the unit (for a Statics) and start nvcc on it: a library, or
+    for a ``.cubin`` target the op-count unit."""
+    count = out.suffix == ".cubin"
     if statics is None:
         unit = CSRC / "normals.cu"
     else:
-        unit = so.with_suffix(".cu")
-        unit.write_text(statics_unit(statics))
-    tmp = so.with_name(f".{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(unit)]
+        unit = out.with_suffix(".cu")
+        unit.write_text(statics_unit(statics, "op_count.cu" if count
+                                     else "month_loop.cu"))
+    tmp = out.with_name(f".{out.stem}.{os.getpid()}.tmp{out.suffix}")
+    flags = COUNT_FLAGS if count else NVCC_FLAGS
+    cmd = [_cuda_tool("nvcc"), *flags, "-I", str(CSRC), "-o", str(tmp),
+           str(unit)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     return proc, cmd, tmp
 
 
-def build_many(statics_list: Sequence[Optional[object]]) -> List[Path]:
+def build_many(statics_list: Sequence[Optional[object]],
+               count_statics: Sequence[object] = ()) -> List[Path]:
     """Build the libraries of every Statics in ``statics_list`` (None: the
-    stream check) that does not exist yet, one nvcc each, all started
-    together; returns their paths in order."""
-    paths = [library_path(s) for s in statics_list]
+    stream check) and the op-count cubins of ``count_statics`` that do not
+    exist yet, one nvcc each, all started together; returns their paths in
+    order, the libraries' first."""
+    paths = ([library_path(s) for s in statics_list]
+             + [count_path(s) for s in count_statics])
     todo = {}
-    for s, so in zip(statics_list, paths):
-        if not so.exists() and so not in todo:
-            todo[so] = s
+    for s, out in zip(list(statics_list) + list(count_statics), paths):
+        if not out.exists() and out not in todo:
+            todo[out] = s
     if not todo:
         return paths
     build_dir().mkdir(parents=True, exist_ok=True)
-    running = [(so, *_start(s, so)) for so, s in todo.items()]
+    running = [(out, *_start(s, out)) for out, s in todo.items()]
     failures = []
     try:
         for so, proc, cmd, tmp in running:
@@ -169,14 +192,23 @@ def build_log(statics=None) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def count_sass(statics) -> str:
+    """``cuobjdump -sass`` of the op-count cubin of ``statics`` (built
+    unless it exists)."""
+    cubin = build_many([], [statics])[0]
+    return subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True,
+                          timeout=NVCC_TIMEOUT_S).stdout
+
+
 def _bind(lib: ctypes.CDLL, statics) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     if statics is None:
         entries = {"mcrt_normals": [vp, i, vp, vp, vp]}
     else:
         entries = {
-            "mcrt_probe": [vp, vp, i, i, i, i, vp, vp, vp, vp],
-            "mcrt_grid": [vp, vp, i, i, i, i, vp, vp, vp, vp],
+            "mcrt_probe": [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp],
+            "mcrt_grid": [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp],
             "mcrt_full": [vp, vp, i, i, i, i, vp, vp, vp, vp, vp],
         }
     for name, argtypes in entries.items():

@@ -14,19 +14,43 @@
 //     :1500): the tracked body -> seven per-path vectors and the yearly
 //     trajectory, price-level and withdrawal-rate series.
 //
-// What bounds them here: per path-month about 60 f32 ops of tax algebra,
-// 3 expf, and the Philox4x32-10 draw (10 rounds of 2 32-bit multiplies) with
-// 3 log1pf + sqrtf + degree-9 polynomials for the normals (crashes add one
-// more Philox draw and normal). Nothing is read or written to device memory
-// inside the loop except the year-end records of full mode (1 month in 12),
-// so the kernels are compute- and latency-bound.
+// What bounds them here: issue slots. Per path-month the Philox4x32-10 draw
+// (10 rounds of 2 32-bit multiplies) and its three normals (log1pf, sqrtf,
+// degree-9 polynomials; crashes add a second Philox and a normal), then 3
+// expf, then about 60 f32 operations of tax algebra. Nothing is read or
+// written to device memory inside the loop except the year-end records of
+// full mode (1 month in 12). The draw depends only on (seed, block, month,
+// lane): candidates and grid rows never enter the key, so every row of a
+// probe or grid launch draws the same words, and the draw is the larger part
+// of a path-month.
 //
-// What the design does about it: one thread per path keeps the whole carry
-// (b1, c1, b2, c2, infl, alive; the gain accumulators, fixed-nominal slots
-// and spending multiplier where the Statics need them; ytr, yg, yr, fy_g,
-// fy_r in full mode) in registers for all months -- what the TPU kernel
-// bought with VMEM residency. No shared memory in the loop; occupancy comes
-// from a modest register count per thread (256-thread blocks).
+// What the design does about it:
+//   * probe_kernel and grid_kernel are tiled: a block holds C rows x 32
+//     paths, one warp per row, so the month predicates on (m, W, t_end) and
+//     the survivor ballot stay warp-uniform. Months go in chunks of M: the
+//     block's warps first draw the chunk's 32 x M path-months together into
+//     a shared-memory tile laid out [month][field][path] (consecutive lanes
+//     read consecutive words: no bank conflict), each draw once for all C
+//     rows (the probe stores the growth factors g1, gi, g2, its rows sharing
+//     one parameter block; the grid stores the normals, and with crashes
+//     the crash uniform and normal, and each row applies its own
+//     parameters); then each warp runs its row's months of the chunk from
+//     the tile, its accumulation months, then its retirement months. A
+//     block loops to the largest t_end of its rows; a warp whose row has
+//     ended, or has no row, still draws and meets every barrier, and votes
+//     0. engine/cuda_kernel.py (tile_plan) chooses C and M and the launch;
+//     the C entries check them.
+//     `__launch_bounds__(512, 2)` holds a 16-row block to 64 registers, two
+//     blocks per SM: the heaviest Statics (all-on, six streams) spill a few
+//     bytes and still run 11-17% faster than at their free 92-97 registers
+//     (PERF.md).
+//   * One thread per (row, path) keeps the whole carry (b1, c1, b2, c2,
+//     infl, alive; the gain accumulators, fixed-nominal slots and spending
+//     multiplier where the Statics need them) in registers for all months --
+//     what the TPU kernel bought with VMEM residency.
+//   * full_kernel has one row, so nothing to share: one thread per path draws
+//     in-thread through the same helpers and runs the same month steps
+//     (start_path, accum_month, snapshot, retire_month), plus the records.
 //
 // Compile-time structure: one library per Statics. engine/_build.py passes
 // every flag of `Statics` (tax system and annual bill per asset, the kind of
@@ -34,15 +58,11 @@
 // longevity) as a -D constant, so every disabled branch compiles out, as on
 // the TPU, and a library holds exactly one instance of each kernel.
 //
-// Probe candidates run on blockIdx.y and each thread recomputes its Philox
-// words from (path, month): candidates never enter the key, so they share
-// their shocks exactly. Grid scenarios ride blockIdx.y the same way; each
-// thread reads its row of the (K, F.NUM + 5*S) parameter block once, into
-// registers (the TPU kernel measured per-use parameter reads in the loop at
-// ~25x, docs/NOTES.md), and the row never enters the key either, so CRN
-// holds across the whole grid. The annual-tax boundary and settle predicates
-// depend only on (m, W, t_end), which a block shares, so those branches do
-// not diverge. Division is IEEE `/` (no fast math), where Pallas used an
+// Grid scenarios read their row of the (K, F.NUM + 5*S) parameter block once,
+// into registers (the TPU kernel measured per-use parameter reads in the loop
+// at ~25x, docs/NOTES.md). The rows of one launch share their seed and block
+// offset (row 0's are read), as the plain loop requires, so CRN holds across
+// the whole grid. Division is IEEE `/` (no fast math), where Pallas used an
 // approximate reciprocal plus a Newton step.
 //
 // Interface: plain C entries loaded with ctypes; each launches on the given
@@ -64,8 +84,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarp = 32;
+constexpr int kTileThreads = 512;  // most threads of a tiled block
+constexpr int kTileBlocks = 2;     // tiled blocks per SM the registers allow
+constexpr int kFullThreads = 256;
 constexpr int kBlockPaths = 4096;  // paths per Philox key (global block)
+constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
+constexpr int kDefaultSmem = 49152;
 constexpr int kMonths = 12;
 constexpr float kEps = 1e-6f;
 constexpr float kFailRtol = 2e-5f;  // fail_rtol(float32)
@@ -85,6 +110,11 @@ constexpr bool kJumps = MCRT_JUMPS != 0;
 constexpr bool kMortality = MCRT_MORTALITY != 0;
 constexpr int kNS = MCRT_NS;
 constexpr int kSlots = kNS > 0 ? kNS : 1;
+
+// Floats per path-month in a draw tile: the probe's growth factors, or the
+// grid's normals (plus the crash uniform and normal).
+constexpr int kProbeFields = 3;
+constexpr int kGridFields = kJumps ? 5 : 3;
 
 // Per-stream kinds, one int each: bit 0 CPI-indexed, bit 1 duration-capped.
 template <int... K>
@@ -123,6 +153,7 @@ enum {
   NUM_FPARAMS
 };
 static_assert(NUM_FPARAMS == 32, "cuda_kernel.F.NUM");
+constexpr int kRow = NUM_FPARAMS + 5 * kNS;
 // iparams rows: [W, t_end, seed, block_offset]
 enum { I_W = 0, I_T_END, I_SEED, I_BLOCK_OFF, NUM_IPARAMS };
 
@@ -205,38 +236,50 @@ __device__ __forceinline__ PathKey path_key(uint32_t seed, uint32_t gblock,
   return key;
 }
 
-// Monthly gross factors (g1, gi, g2) of one path from its Philox draw
-// (pallas_kernel.py:745-771); with crashes, the compensated jump folds into
-// the exponents (draw_jump, :507-528).
-__device__ __forceinline__ void draw(const Scenario& sc, int m,
-                                     const PathKey& key, float& g1, float& gi,
-                                     float& g2) {
+// One path-month's draw: the three normals and, with crashes, the crash
+// uniform and normal, antithetic sign and reflection applied.
+struct Shock {
+  float z_eq, z_ind, z_prem, u, z_j;
+};
+
+__device__ __forceinline__ Shock month_shock(int m, const PathKey& key) {
   const uint4 w = mcrt::month_words(key.seed, key.block, m, key.lane);
-  float z_eq = mcrt::bits_to_normal(w.x);
-  float z_ind = mcrt::bits_to_normal(w.y);
-  float z_prem = mcrt::bits_to_normal(w.z);
+  Shock s;
+  s.z_eq = mcrt::bits_to_normal(w.x);
+  s.z_ind = mcrt::bits_to_normal(w.y);
+  s.z_prem = mcrt::bits_to_normal(w.z);
   if constexpr (kAntithetic) {
-    z_eq *= key.sign;
-    z_ind *= key.sign;
-    z_prem *= key.sign;
+    s.z_eq *= key.sign;
+    s.z_ind *= key.sign;
+    s.z_prem *= key.sign;
   }
-  const float z_inf = sc.rho * z_eq + sc.rho_c * z_ind;
   if constexpr (kJumps) {
-    float u = mcrt::bits_to_uniform(w.w);
-    float z_j = mcrt::bits_to_normal(
+    s.u = mcrt::bits_to_uniform(w.w);
+    s.z_j = mcrt::bits_to_normal(
         mcrt::crash_word(key.seed, key.block, m, key.lane));
     if constexpr (kAntithetic) {
-      if (key.sign < 0.0f) u = 1.0f - u;
-      z_j *= key.sign;
+      if (key.sign < 0.0f) s.u = 1.0f - s.u;
+      s.z_j *= key.sign;
     }
-    const float jl = u < sc.jp ? sc.jmu + sc.jsig * z_j : 0.0f;
-    g1 = expf(sc.mu1 + sc.s1 * z_eq + (jl - sc.jc1));
+  }
+  return s;
+}
+
+// Monthly gross factors (g1, gi, g2) of one path from its draw
+// (pallas_kernel.py:745-771); with crashes, the compensated jump folds into
+// the exponents (draw_jump, :507-528).
+__device__ __forceinline__ void growth(const Scenario& sc, const Shock& s,
+                                       float& g1, float& gi, float& g2) {
+  const float z_inf = sc.rho * s.z_eq + sc.rho_c * s.z_ind;
+  if constexpr (kJumps) {
+    const float jl = s.u < sc.jp ? sc.jmu + sc.jsig * s.z_j : 0.0f;
+    g1 = expf(sc.mu1 + sc.s1 * s.z_eq + (jl - sc.jc1));
     gi = expf(sc.mui + sc.si * z_inf);
-    g2 = gi * expf(sc.mup + sc.sp * z_prem + (sc.jbeta * jl - sc.jc2));
+    g2 = gi * expf(sc.mup + sc.sp * s.z_prem + (sc.jbeta * jl - sc.jc2));
   } else {
-    g1 = expf(sc.mu1 + sc.s1 * z_eq);
+    g1 = expf(sc.mu1 + sc.s1 * s.z_eq);
     gi = expf(sc.mui + sc.si * z_inf);
-    g2 = gi * expf(sc.mup + sc.sp * z_prem);
+    g2 = gi * expf(sc.mup + sc.sp * s.z_prem);
   }
 }
 
@@ -387,316 +430,401 @@ __device__ __forceinline__ void stream_income(const Scenario& sc,
   }
 }
 
-// Per-path results the kernels store.
-struct PathOut {
-  float alive, final_bal, start, ytr, fyg, fyr, infl_ret;
+// ---------------------------------------------------------------------------
+// The month steps (pallas_kernel.py:718-1171), shared by every kernel
+// ---------------------------------------------------------------------------
+// One path's carry. The tracked fields (ytr .. infl_ret) live only in the
+// full kernel; elsewhere they are never read and compile out.
+struct Carry {
+  float b1, c1, b2, c2, infl, alive_f;
+  float g1a, g2a;  // period market gains (annual bills)
+  bool preret;     // a bill failed before retirement
+  float smult;     // guardrails' spending multiplier
+  float stream_start[kSlots], fixed[kSlots];
+  float d_mort, glide_scale;
+  float ytr, yg, yr, fyg, fyr, start, infl_ret;
 };
 
-// The month loop of one path (pallas_kernel.py:718-1171). TRACK adds the
-// full-mode records, stored straight to the (L, n) / (R, n) series at year
-// ends.
-template <bool TRACK>
-__device__ __forceinline__ PathOut run_path(
-    const Scenario& sc, int w, int t_end, const PathKey& key, int n, int p,
-    int R, int L, float* __restrict__ traj, float* __restrict__ price,
-    float* __restrict__ wr) {
+// The full kernel's year-end records: (L, n) trajectory and price series and
+// the (R, n) withdrawal-rate series of path p.
+struct Records {
+  float* traj;
+  float* price;
+  float* wr;
+  int n, p, R, L, full_wy, partial_wy;
+};
+
+__device__ __forceinline__ Carry start_path(const Scenario& sc, int w,
+                                            const PathKey& key) {
+  Carry c;
   const float wf = static_cast<float>(w);
-  float stream_start[kSlots], fixed[kSlots];
 #pragma unroll
   for (int s = 0; s < kNS; ++s) {
-    stream_start[s] =
+    c.stream_start[s] =
         fmaxf(0.0f, ceilf(fmaxf(0.0f, sc.from_t0[s] - wf) - kEps));
-    fixed[s] = -1.0f;
+    c.fixed[s] = -1.0f;
   }
   // Longevity (pallas_kernel.py:530-556): one uniform per path from the
   // salted key -> remaining months at this row's own retirement date.
-  float d_mort = 0.0f;
+  c.d_mort = 0.0f;
   if constexpr (kMortality) {
     float u = mcrt::bits_to_uniform(
         mcrt::mortality_word(key.seed, key.block, key.lane));
     if constexpr (kAntithetic) {
       if (key.sign < 0.0f) u = 1.0f - u;
     }
-    d_mort = gompertz_remaining_months(u, sc.mort_g0, sc.mort_b12,
-                                       sc.mort_cap, wf);
+    c.d_mort = gompertz_remaining_months(u, sc.mort_g0, sc.mort_b12,
+                                         sc.mort_cap, wf);
   }
   // Glide (pallas_kernel.py:559-566): the target moves linearly to alloc1_f
   // over the W working months; retirement holds alloc1_f.
-  float glide_scale = 0.0f;
-  if constexpr (kGlide) glide_scale = (sc.alloc1_f - sc.alloc1) / fmaxf(wf, 1.0f);
+  c.glide_scale = 0.0f;
+  if constexpr (kGlide) c.glide_scale = (sc.alloc1_f - sc.alloc1) / fmaxf(wf, 1.0f);
 
-  float b1 = sc.init_bal * sc.alloc1;
-  float b2 = sc.init_bal - b1;
-  float c1 = b1, c2 = b2, infl = 1.0f, alive_f = 1.0f;
-  float g1a = 0.0f, g2a = 0.0f;  // period market gains (annual bills)
-  bool preret = false;           // a bill failed before retirement
-  float smult = 1.0f;            // guardrails' spending multiplier
-  float ytr = 0.0f, yg = 0.0f, yr = 0.0f, fyg = 0.0f, fyr = 0.0f;
-  float start = 0.0f, infl_ret = 1.0f;
-  const int full_wy = w / kMonths;
-  const int partial_wy = (w % kMonths) != 0;
-
-  if (TRACK) {
-    traj[p] = sc.init_bal;
-    price[p] = 1.0f;
-    for (int j = 1; j < L; ++j) {
-      traj[static_cast<size_t>(j) * n + p] = 0.0f;
-      price[static_cast<size_t>(j) * n + p] = 1.0f;
-    }
-    for (int y = 0; y < R; ++y) wr[static_cast<size_t>(y) * n + p] = __int_as_float(0x7fc00000);
-  }
-
-  // --- accumulation months 1..W: no deaths, no masks
-  for (int m = 1; m <= w; ++m) {
-    float g1, gi, g2;
-    draw(sc, m, key, g1, gi, g2);
-    if constexpr (kBills) {
-      g1a += b1 * (g1 - 1.0f);
-      g2a += b2 * (g2 - 1.0f);
-    }
-    b1 *= g1;
-    b2 *= g2;
-    infl *= gi;
-    const float contrib =
-        sc.contrib0 * expf(sc.log1p_growth * static_cast<float>((m - 1) / kMonths));
-    float al = sc.alloc1;
-    if constexpr (kGlide) al = sc.alloc1 + glide_scale * static_cast<float>(m);
-    const float ca1 = contrib * al;
-    const float ca2 = contrib - ca1;
-    b1 += ca1;
-    c1 += ca1;
-    b2 += ca2;
-    c2 += ca2;
-    float eff1, nf1, nc1, eff2, nf2, nc2;
-    profile<kUseReal1>(b1, c1, sc.r1, eff1, nf1, nc1);
-    profile<kUseReal2>(b2, c2, sc.r2, eff2, nf2, nc2);
-    rebalance_lite(b1, c1, b2, c2, eff1, eff2, al, false);
-    if constexpr (kBills) {
-      if (m % kMonths == 0) {  // absolute year boundary (pallas :802-819)
-        if (annual_tax(sc, b1, c1, b2, c2, g1a, g2a, al)) preret = true;
-        g1a = 0.0f;
-        g2a = 0.0f;
-      }
-    }
-    if (TRACK && m % kMonths == 0) {
-      const size_t slot = static_cast<size_t>(min(m / kMonths, L - 1));
-      traj[slot * n + p] = b1 + b2;
-      price[slot * n + p] = infl;
-    }
-  }
-
-  // --- retirement snapshot: a bill that failed before retirement kills the
-  // path at its own W (pallas :839-841)
-  if constexpr (kBills) {
-    if (preret) alive_f = 0.0f;
-  }
-  if (TRACK) {
-    start = b1 + b2;
-    infl_ret = infl;
-    if (partial_wy) {
-      const size_t slot = static_cast<size_t>(min(full_wy + 1, L - 1));
-      traj[slot * n + p] = start;
-      price[slot * n + p] = infl_ret;
-    }
-  }
-
-  // --- retirement months W+1..t_end
-  for (int m = w + 1; m <= t_end; ++m) {
-    const bool alive = alive_f > 0.5f;
-    const float alive0_f = alive_f;
-    const int k = m - w;
-    const int ret_idx = k - 1;
-    const float ret_idx_f = static_cast<float>(ret_idx);
-    if (TRACK && k % kMonths == 1) {
-      yg = 0.0f;
-      yr = 0.0f;
-    }
-
-    // income waterfall & net spending need
-    const float price0 = infl;
-    float expenses = sc.expenses;
-    if constexpr (kGuardrails) {  // pallas :887-912
-      // Year starts (years 1+) of a living path only; the predicate on
-      // ret_idx is uniform across the block (one W per block).
-      if (ret_idx % kMonths == 0 && ret_idx > 0 && alive) {
-        const float planned = 12.0f * sc.expenses * smult * price0;
-        const float wr_now = planned / fmaxf(b1 + b2, kEps);
-        float s_new = wr_now > sc.gr_up ? smult * (1.0f - sc.gr_adj) : smult;
-        s_new = wr_now < sc.gr_lo ? smult * (1.0f + sc.gr_adj) : s_new;
-        smult = fminf(fmaxf(s_new, sc.gr_floor), sc.gr_cap);
-      }
-      expenses = sc.expenses * smult;
-    }
-    float need = expenses * price0;
-    if constexpr (kNS > 0) {
-      float net_income = 0.0f;
-      stream_income<0>(sc, stream_start, fixed, ret_idx_f, price0, net_income);
-      need = fmaxf(0.0f, need - net_income);
-    }
-    bool living = true;
-    if constexpr (kMortality) {  // spending ends with the owner (:942-948)
-      living = ret_idx_f < d_mort;
-      if (!living) need = 0.0f;
-    }
-
-    // ruin check A, then growth (dead/ruined paths freeze)
-    const bool dies_a = alive && (b1 + b2 <= kEps) && (need > kEps);
-    float g1, gi, g2;
-    draw(sc, m, key, g1, gi, g2);
-    const bool gmask = alive && !dies_a;
-    if (gmask) {
-      if constexpr (kBills) {
-        g1a += b1 * (g1 - 1.0f);
-        g2a += b2 * (g2 - 1.0f);
-      }
-      b1 *= g1;
-      b2 *= g2;
-      infl *= gi;
-    }
-
-    // ruin check B, then the capacity-limited withdrawal split pro-rata by
-    // net capacity: one sale fraction for both assets
-    const float total1 = b1 + b2;
-    const bool dies_b = gmask && (total1 <= kEps) && (need > kEps);
-    const bool wmask = gmask && !dies_b;
-    float eff1, nf1, nc1, eff2, nf2, nc2;
-    profile<kUseReal1>(b1, c1, sc.r1, eff1, nf1, nc1);
-    profile<kUseReal2>(b2, c2, sc.r2, eff2, nf2, nc2);
-    const float ftol = kEps + kFailRtol * (need + total1);
-    float gross1, gross2;
-    const float nw = sell_pro_rata(b1, c1, b2, c2, need, nc1, nc2, nf1, nf2,
-                                   wmask, gross1, gross2);
-    const bool fail_net = wmask && (need > kEps) && (nw < need - ftol);
-    if (TRACK) {
-      const float gw = gross1 + gross2;
-      yg += gw;
-      yr += gw / fmaxf(price0, kEps);
-    }
-
-    // monthly rebalance (the proportional sale left the profiles valid)
-    rebalance_lite(b1, c1, b2, c2, eff1, eff2, sc.alloc1_f, !wmask);
-
-    // annual taxes at absolute year boundaries and the terminal settle of a
-    // partial last year (pallas :1015-1054); a settle failure is not a ruin
-    // for the records
-    const bool dies_pre = dies_a || dies_b || fail_net;
-    bool dies = dies_pre, dies_regular = dies_pre;
-    if constexpr (kBills) {
-      const bool is_boundary = m % kMonths == 0;
-      const bool is_settle = m == t_end && w % kMonths != 0;
-      if (is_boundary || is_settle) {
-        const bool apply = is_boundary ? wmask && !fail_net : alive && !dies_pre;
-        if (apply) {
-          const bool tfail =
-              annual_tax(sc, b1, c1, b2, c2, g1a, g2a, sc.alloc1_f);
-          if (is_boundary) {
-            g1a = 0.0f;
-            g2a = 0.0f;
-          }
-          dies = dies_pre || tfail;
-          dies_regular = dies && !(is_settle && tfail);
-        }
-      }
-    }
-    if (dies) alive_f = 0.0f;
-    if (TRACK) {
-      ytr += alive0_f;  // alive-months counter
-      if (k <= kMonths) {  // first retirement year: capture at death / year end
-        const bool cap_fy = (alive0_f > 0.5f) && (dies_regular || k % kMonths == 0);
-        if (cap_fy) {
-          fyg = yg;
-          fyr = yr * infl_ret;
-        }
-      }
-      if (k % kMonths == 0) {  // year-end records with death padding
-        const size_t slot = static_cast<size_t>(
-            min(full_wy + partial_wy + (k + kMonths - 1) / kMonths, L - 1));
-        const size_t yslot =
-            static_cast<size_t>(min(max(k / kMonths - 1, 0), R - 1));
-        const float total2 = b1 + b2;
-        const bool died_this_year =
-            (ytr > static_cast<float>((k / kMonths - 1) * kMonths) + 0.5f) &&
-            (ytr < static_cast<float>(k) + 0.5f);
-        const bool alive_now = alive_f > 0.5f;
-        if (alive_now || died_this_year)
-          traj[slot * n + p] = alive_now ? total2 : fmaxf(0.0f, total2);
-        price[slot * n + p] = infl;
-        // withdrawal-rate observations only for fully-lived years
-        if ((alive0_f > 0.5f) && !dies_regular && living)
-          wr[yslot * n + p] =
-              start > kEps ? yr * infl_ret / fmaxf(start, kEps) * 100.0f : 0.0f;
-      }
-    }
-  }
-
-  PathOut out;
-  out.alive = alive_f;
-  out.final_bal = fmaxf(0.0f, b1 + b2);
-  out.start = start;
-  out.ytr = alive_f > 0.5f ? __int_as_float(0x7fc00000) : ytr / static_cast<float>(kMonths);
-  out.fyg = fyg;
-  out.fyr = fyr;
-  out.infl_ret = infl_ret;
-  return out;
+  c.b1 = sc.init_bal * sc.alloc1;
+  c.b2 = sc.init_bal - c.b1;
+  c.c1 = c.b1;
+  c.c2 = c.b2;
+  c.infl = 1.0f;
+  c.alive_f = 1.0f;
+  c.g1a = 0.0f;
+  c.g2a = 0.0f;
+  c.preret = false;
+  c.smult = 1.0f;
+  c.ytr = c.yg = c.yr = c.fyg = c.fyr = 0.0f;
+  c.start = 0.0f;
+  c.infl_ret = 1.0f;
+  return c;
 }
 
-// One candidate row (blockIdx.y) of a probe or grid launch: the loop for
-// this thread's path with the scenario at ``fp_row``, then the row's
-// survivor count over exactly n paths: padding lanes vote 0, one atomic per
-// block.
-__device__ __forceinline__ void probe_row(const float* __restrict__ fp_row,
-                                          const int* __restrict__ ip, int n,
-                                          int R, float* __restrict__ success,
-                                          float* __restrict__ final_bal,
-                                          int* __restrict__ counts) {
-  const int cand = blockIdx.y;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  int alive_i = 0;
-  if (p < n) {
-    const Scenario sc(fp_row);
-    const int* row = ip + cand * NUM_IPARAMS;
-    const PathKey key = path_key(
-        static_cast<uint32_t>(row[I_SEED]),
-        static_cast<uint32_t>(p / kBlockPaths + row[I_BLOCK_OFF]),
-        static_cast<uint32_t>(p % kBlockPaths));
-    const PathOut o = run_path<false>(sc, row[I_W], row[I_T_END], key, n, p,
-                                      R, 0, nullptr, nullptr, nullptr);
-    const size_t idx = static_cast<size_t>(cand) * n + p;
-    success[idx] = o.alive;
-    final_bal[idx] = o.final_bal;
-    alive_i = o.alive > 0.5f;
+// Accumulation month m (1..W): no deaths, no masks.
+__device__ __forceinline__ void accum_month(const Scenario& sc, Carry& c,
+                                            int m, float g1, float gi,
+                                            float g2) {
+  if constexpr (kBills) {
+    c.g1a += c.b1 * (g1 - 1.0f);
+    c.g2a += c.b2 * (g2 - 1.0f);
   }
-  __shared__ int warp_counts[kThreads / 32];
-  const unsigned ballot = __ballot_sync(0xffffffffu, alive_i);
-  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = __popc(ballot);
+  c.b1 *= g1;
+  c.b2 *= g2;
+  c.infl *= gi;
+  const float contrib =
+      sc.contrib0 * expf(sc.log1p_growth * static_cast<float>((m - 1) / kMonths));
+  float al = sc.alloc1;
+  if constexpr (kGlide) al = sc.alloc1 + c.glide_scale * static_cast<float>(m);
+  const float ca1 = contrib * al;
+  const float ca2 = contrib - ca1;
+  c.b1 += ca1;
+  c.c1 += ca1;
+  c.b2 += ca2;
+  c.c2 += ca2;
+  float eff1, nf1, nc1, eff2, nf2, nc2;
+  profile<kUseReal1>(c.b1, c.c1, sc.r1, eff1, nf1, nc1);
+  profile<kUseReal2>(c.b2, c.c2, sc.r2, eff2, nf2, nc2);
+  rebalance_lite(c.b1, c.c1, c.b2, c.c2, eff1, eff2, al, false);
+  if constexpr (kBills) {
+    if (m % kMonths == 0) {  // absolute year boundary (pallas :802-819)
+      if (annual_tax(sc, c.b1, c.c1, c.b2, c.c2, c.g1a, c.g2a, al))
+        c.preret = true;
+      c.g1a = 0.0f;
+      c.g2a = 0.0f;
+    }
+  }
+}
+
+// The retirement snapshot: a bill that failed before retirement kills the
+// path at its own W (pallas :839-841).
+__device__ __forceinline__ void snapshot(Carry& c) {
+  if constexpr (kBills) {
+    if (c.preret) c.alive_f = 0.0f;
+  }
+}
+
+// Retirement month m (W+1..t_end). TRACK adds the full-mode records,
+// stored straight to the (L, n) / (R, n) series at year ends.
+template <bool TRACK>
+__device__ __forceinline__ void retire_month(const Scenario& sc, Carry& c,
+                                             int m, int w, int t_end,
+                                             float g1, float gi, float g2,
+                                             const Records& rec) {
+  const bool alive = c.alive_f > 0.5f;
+  const float alive0_f = c.alive_f;
+  const int k = m - w;
+  const int ret_idx = k - 1;
+  const float ret_idx_f = static_cast<float>(ret_idx);
+  if (TRACK && k % kMonths == 1) {
+    c.yg = 0.0f;
+    c.yr = 0.0f;
+  }
+
+  // income waterfall & net spending need
+  const float price0 = c.infl;
+  float expenses = sc.expenses;
+  if constexpr (kGuardrails) {  // pallas :887-912
+    // Year starts (years 1+) of a living path only; the predicate on
+    // ret_idx is uniform across the warp (one row per warp).
+    if (ret_idx % kMonths == 0 && ret_idx > 0 && alive) {
+      const float planned = 12.0f * sc.expenses * c.smult * price0;
+      const float wr_now = planned / fmaxf(c.b1 + c.b2, kEps);
+      float s_new = wr_now > sc.gr_up ? c.smult * (1.0f - sc.gr_adj) : c.smult;
+      s_new = wr_now < sc.gr_lo ? c.smult * (1.0f + sc.gr_adj) : s_new;
+      c.smult = fminf(fmaxf(s_new, sc.gr_floor), sc.gr_cap);
+    }
+    expenses = sc.expenses * c.smult;
+  }
+  float need = expenses * price0;
+  if constexpr (kNS > 0) {
+    float net_income = 0.0f;
+    stream_income<0>(sc, c.stream_start, c.fixed, ret_idx_f, price0,
+                     net_income);
+    need = fmaxf(0.0f, need - net_income);
+  }
+  bool living = true;
+  if constexpr (kMortality) {  // spending ends with the owner (:942-948)
+    living = ret_idx_f < c.d_mort;
+    if (!living) need = 0.0f;
+  }
+
+  // ruin check A, then growth (dead/ruined paths freeze)
+  const bool dies_a = alive && (c.b1 + c.b2 <= kEps) && (need > kEps);
+  const bool gmask = alive && !dies_a;
+  if (gmask) {
+    if constexpr (kBills) {
+      c.g1a += c.b1 * (g1 - 1.0f);
+      c.g2a += c.b2 * (g2 - 1.0f);
+    }
+    c.b1 *= g1;
+    c.b2 *= g2;
+    c.infl *= gi;
+  }
+
+  // ruin check B, then the capacity-limited withdrawal split pro-rata by
+  // net capacity: one sale fraction for both assets
+  const float total1 = c.b1 + c.b2;
+  const bool dies_b = gmask && (total1 <= kEps) && (need > kEps);
+  const bool wmask = gmask && !dies_b;
+  float eff1, nf1, nc1, eff2, nf2, nc2;
+  profile<kUseReal1>(c.b1, c.c1, sc.r1, eff1, nf1, nc1);
+  profile<kUseReal2>(c.b2, c.c2, sc.r2, eff2, nf2, nc2);
+  const float ftol = kEps + kFailRtol * (need + total1);
+  float gross1, gross2;
+  const float nw = sell_pro_rata(c.b1, c.c1, c.b2, c.c2, need, nc1, nc2, nf1,
+                                 nf2, wmask, gross1, gross2);
+  const bool fail_net = wmask && (need > kEps) && (nw < need - ftol);
+  if (TRACK) {
+    const float gw = gross1 + gross2;
+    c.yg += gw;
+    c.yr += gw / fmaxf(price0, kEps);
+  }
+
+  // monthly rebalance (the proportional sale left the profiles valid)
+  rebalance_lite(c.b1, c.c1, c.b2, c.c2, eff1, eff2, sc.alloc1_f, !wmask);
+
+  // annual taxes at absolute year boundaries and the terminal settle of a
+  // partial last year (pallas :1015-1054); a settle failure is not a ruin
+  // for the records
+  const bool dies_pre = dies_a || dies_b || fail_net;
+  bool dies = dies_pre, dies_regular = dies_pre;
+  if constexpr (kBills) {
+    const bool is_boundary = m % kMonths == 0;
+    const bool is_settle = m == t_end && w % kMonths != 0;
+    if (is_boundary || is_settle) {
+      const bool apply = is_boundary ? wmask && !fail_net : alive && !dies_pre;
+      if (apply) {
+        const bool tfail =
+            annual_tax(sc, c.b1, c.c1, c.b2, c.c2, c.g1a, c.g2a, sc.alloc1_f);
+        if (is_boundary) {
+          c.g1a = 0.0f;
+          c.g2a = 0.0f;
+        }
+        dies = dies_pre || tfail;
+        dies_regular = dies && !(is_settle && tfail);
+      }
+    }
+  }
+  if (dies) c.alive_f = 0.0f;
+  if (TRACK) {
+    const int n = rec.n, p = rec.p;
+    c.ytr += alive0_f;  // alive-months counter
+    if (k <= kMonths) {  // first retirement year: capture at death / year end
+      const bool cap_fy = (alive0_f > 0.5f) && (dies_regular || k % kMonths == 0);
+      if (cap_fy) {
+        c.fyg = c.yg;
+        c.fyr = c.yr * c.infl_ret;
+      }
+    }
+    if (k % kMonths == 0) {  // year-end records with death padding
+      const size_t slot = static_cast<size_t>(min(
+          rec.full_wy + rec.partial_wy + (k + kMonths - 1) / kMonths, rec.L - 1));
+      const size_t yslot =
+          static_cast<size_t>(min(max(k / kMonths - 1, 0), rec.R - 1));
+      const float total2 = c.b1 + c.b2;
+      const bool died_this_year =
+          (c.ytr > static_cast<float>((k / kMonths - 1) * kMonths) + 0.5f) &&
+          (c.ytr < static_cast<float>(k) + 0.5f);
+      const bool alive_now = c.alive_f > 0.5f;
+      if (alive_now || died_this_year)
+        rec.traj[slot * n + p] = alive_now ? total2 : fmaxf(0.0f, total2);
+      rec.price[slot * n + p] = c.infl;
+      // withdrawal-rate observations only for fully-lived years
+      if ((alive0_f > 0.5f) && !dies_regular && living)
+        rec.wr[yslot * n + p] = c.start > kEps
+            ? c.yr * c.infl_ret / fmaxf(c.start, kEps) * 100.0f : 0.0f;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// probe_kernel / grid_kernel: the tiled month loop
+// ---------------------------------------------------------------------------
+// One path-month's growth factors from the draw tile (t: this lane's entry
+// of the month): the probe's tile holds them; a grid row applies its own
+// parameters to the tile's normals.
+template <bool GRID>
+__device__ __forceinline__ void tile_growth(const Scenario& sc,
+                                            const float* t, float& g1,
+                                            float& gi, float& g2) {
+  constexpr int P = kWarp;
+  if constexpr (GRID) {
+    Shock s;
+    s.z_eq = t[0];
+    s.z_ind = t[P];
+    s.z_prem = t[2 * P];
+    if constexpr (kJumps) {
+      s.u = t[3 * P];
+      s.z_j = t[4 * P];
+    }
+    growth(sc, s, g1, gi, g2);
+  } else {
+    g1 = t[0];
+    gi = t[P];
+    g2 = t[2 * P];
+  }
+}
+
+// Block (bx, by) holds rows by*C .. by*C+C-1 and paths bx*32 .. bx*32+31;
+// warp v of the block serves row by*C + v (cuda_kernel.TilePlan.cell mirrors
+// this). Dynamic shared memory: the draw tile [M][FIELDS][32] floats, then
+// the block's largest t_end. A warp beyond
+// the last row reads the last row's parameters, runs no month and writes
+// nothing.
+template <bool GRID>
+__device__ __forceinline__ void tile_body(
+    const float* __restrict__ fp, const int* __restrict__ ip, int n_rows,
+    int n, int rows_per_block, int months_per_chunk,
+    float* __restrict__ success, float* __restrict__ final_bal,
+    int* __restrict__ counts) {
+  constexpr int FIELDS = GRID ? kGridFields : kProbeFields;
+  constexpr int P = kWarp;  // paths per block
+  extern __shared__ float smem[];
+  const int M = months_per_chunk;
+  float* tile = smem;
+  int* block_t_end = reinterpret_cast<int*>(smem + M * FIELDS * P);
+
+  const int row_in_block = threadIdx.x / kWarp;
+  const int j = threadIdx.x % kWarp;
+  const int row = blockIdx.y * rows_per_block + row_in_block;
+  const bool has_row = row < n_rows;
+  const int my_row = has_row ? row : n_rows - 1;
+  const int p0 = blockIdx.x * P;  // 32 divides 4096: one key block per tile
+  const int p = p0 + j;
+
+  const int* irow = ip + my_row * NUM_IPARAMS;
+  const int w = irow[I_W];
+  const int t_end = has_row ? irow[I_T_END] : 0;
+  const uint32_t seed = static_cast<uint32_t>(ip[I_SEED]);
+  const uint32_t gblock =
+      static_cast<uint32_t>(p0 / kBlockPaths + ip[I_BLOCK_OFF]);
+  const PathKey key =
+      path_key(seed, gblock, static_cast<uint32_t>(p % kBlockPaths));
+
+  if (threadIdx.x == 0) *block_t_end = 0;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-#pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) total += warp_counts[i];
-    atomicAdd(counts + cand, total);
+  if (j == 0 && has_row) atomicMax(block_t_end, t_end);
+  __syncthreads();
+  const int t_max = *block_t_end;
+
+  const Scenario sc(GRID ? fp + static_cast<size_t>(my_row) * kRow : fp);
+  Carry c = start_path(sc, w, key);
+
+  for (int m0 = 1; m0 <= t_max; m0 += M) {
+    const int mc = min(M, t_max - m0 + 1);
+    // Draw phase: every warp of the block, each path-month once (warp v
+    // draws months v, v + C, ... of the chunk for its 32 paths).
+    for (int mm = row_in_block; mm < mc; mm += rows_per_block) {
+      const Shock s = month_shock(m0 + mm, key);
+      float* t = tile + mm * FIELDS * P + j;
+      if constexpr (GRID) {
+        t[0] = s.z_eq;
+        t[P] = s.z_ind;
+        t[2 * P] = s.z_prem;
+        if constexpr (kJumps) {
+          t[3 * P] = s.u;
+          t[4 * P] = s.z_j;
+        }
+      } else {
+        float g1, gi, g2;
+        growth(sc, s, g1, gi, g2);  // the probe's rows share sc
+        t[0] = g1;
+        t[P] = gi;
+        t[2 * P] = g2;
+      }
+    }
+    __syncthreads();
+    // Body phase: each warp runs its row's months of the chunk, its
+    // accumulation months, the snapshot, then its retirement months.
+    const int m_last = min(m0 + mc - 1, t_end);
+    float g1, gi, g2;
+    for (int m = m0; m <= min(m_last, w); ++m) {
+      tile_growth<GRID>(sc, tile + (m - m0) * FIELDS * P + j, g1, gi, g2);
+      accum_month(sc, c, m, g1, gi, g2);
+    }
+    if (m0 <= w + 1 && w + 1 <= m_last) snapshot(c);
+    for (int m = max(m0, w + 1); m <= m_last; ++m) {
+      tile_growth<GRID>(sc, tile + (m - m0) * FIELDS * P + j, g1, gi, g2);
+      retire_month<false>(sc, c, m, w, t_end, g1, gi, g2, Records{});
+    }
+    __syncthreads();  // the tile is read before the next chunk's draws
   }
+  if (t_end <= w) snapshot(c);  // a row without retirement months
+
+  int alive_i = 0;
+  if (has_row && p < n) {
+    const size_t idx = static_cast<size_t>(row) * n + p;
+    success[idx] = c.alive_f;
+    final_bal[idx] = fmaxf(0.0f, c.b1 + c.b2);
+    alive_i = c.alive_f > 0.5f;
+  }
+  // Survivors: one ballot per warp (= per row of the block), one atomic per
+  // (block, row); padding lanes and rowless warps vote 0.
+  const unsigned ballot = __ballot_sync(0xffffffffu, alive_i);
+  if (j == 0 && has_row) atomicAdd(counts + row, __popc(ballot));
 }
 
 // Candidates share one parameter block (fp: F.NUM + 5*S floats).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
     probe_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
-                 int n, int R, float* __restrict__ success,
-                 float* __restrict__ final_bal, int* __restrict__ counts) {
-  probe_row(fp, ip, n, R, success, final_bal, counts);
+                 int n_rows, int n, int rows_per_block, int months_per_chunk,
+                 float* __restrict__ success, float* __restrict__ final_bal,
+                 int* __restrict__ counts) {
+  tile_body<false>(fp, ip, n_rows, n, rows_per_block, months_per_chunk,
+                   success, final_bal, counts);
 }
 
 // One parameter row per scenario (fp: K rows of F.NUM + 5*S floats).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
     grid_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
-                int n, int R, float* __restrict__ success,
-                float* __restrict__ final_bal, int* __restrict__ counts) {
-  constexpr int kRow = NUM_FPARAMS + 5 * kNS;
-  probe_row(fp + static_cast<size_t>(blockIdx.y) * kRow, ip, n, R, success,
-            final_bal, counts);
+                int n_rows, int n, int rows_per_block, int months_per_chunk,
+                float* __restrict__ success, float* __restrict__ final_bal,
+                int* __restrict__ counts) {
+  tile_body<true>(fp, ip, n_rows, n, rows_per_block, months_per_chunk,
+                  success, final_bal, counts);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// full_kernel: one thread per path, draws in-thread
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kFullThreads)
     full_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
                 int n, int R, int L, float* __restrict__ vecs,
                 float* __restrict__ traj, float* __restrict__ price,
@@ -704,55 +832,112 @@ __global__ void __launch_bounds__(kThreads)
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
   const Scenario sc(fp);
+  const int w = ip[I_W], t_end = ip[I_T_END];
   const PathKey key = path_key(
       static_cast<uint32_t>(ip[I_SEED]),
       static_cast<uint32_t>(p / kBlockPaths + ip[I_BLOCK_OFF]),
       static_cast<uint32_t>(p % kBlockPaths));
-  const PathOut o = run_path<true>(sc, ip[I_W], ip[I_T_END], key, n, p, R, L,
-                                   traj, price, wr);
+  const Records rec{traj, price, wr, n, p, R, L, w / kMonths,
+                    (w % kMonths) != 0};
+  Carry c = start_path(sc, w, key);
+
+  traj[p] = sc.init_bal;
+  price[p] = 1.0f;
+  for (int j = 1; j < L; ++j) {
+    traj[static_cast<size_t>(j) * n + p] = 0.0f;
+    price[static_cast<size_t>(j) * n + p] = 1.0f;
+  }
+  for (int y = 0; y < R; ++y) wr[static_cast<size_t>(y) * n + p] = __int_as_float(0x7fc00000);
+
+  float g1, gi, g2;
+  for (int m = 1; m <= w; ++m) {
+    growth(sc, month_shock(m, key), g1, gi, g2);
+    accum_month(sc, c, m, g1, gi, g2);
+    if (m % kMonths == 0) {
+      const size_t slot = static_cast<size_t>(min(m / kMonths, L - 1));
+      traj[slot * n + p] = c.b1 + c.b2;
+      price[slot * n + p] = c.infl;
+    }
+  }
+  snapshot(c);
+  c.start = c.b1 + c.b2;
+  c.infl_ret = c.infl;
+  if (rec.partial_wy) {
+    const size_t slot = static_cast<size_t>(min(rec.full_wy + 1, L - 1));
+    traj[slot * n + p] = c.start;
+    price[slot * n + p] = c.infl_ret;
+  }
+  for (int m = w + 1; m <= t_end; ++m) {
+    growth(sc, month_shock(m, key), g1, gi, g2);
+    retire_month<true>(sc, c, m, w, t_end, g1, gi, g2, rec);
+  }
+
   // vecs rows: success, final, start, ytr, fy_g, fy_r, infl_ret
-  vecs[p] = o.alive;
-  vecs[static_cast<size_t>(n) + p] = o.final_bal;
-  vecs[2 * static_cast<size_t>(n) + p] = o.start;
-  vecs[3 * static_cast<size_t>(n) + p] = o.ytr;
-  vecs[4 * static_cast<size_t>(n) + p] = o.fyg;
-  vecs[5 * static_cast<size_t>(n) + p] = o.fyr;
-  vecs[6 * static_cast<size_t>(n) + p] = o.infl_ret;
+  vecs[p] = c.alive_f;
+  vecs[static_cast<size_t>(n) + p] = fmaxf(0.0f, c.b1 + c.b2);
+  vecs[2 * static_cast<size_t>(n) + p] = c.start;
+  vecs[3 * static_cast<size_t>(n) + p] =
+      c.alive_f > 0.5f ? __int_as_float(0x7fc00000)
+                       : c.ytr / static_cast<float>(kMonths);
+  vecs[4 * static_cast<size_t>(n) + p] = c.fyg;
+  vecs[5 * static_cast<size_t>(n) + p] = c.fyr;
+  vecs[6 * static_cast<size_t>(n) + p] = c.infl_ret;
 }
 
-inline unsigned blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+// A tiled launch as engine/cuda_kernel.py's tile_plan describes it, checked
+// against the kernel's own limits and the shared-memory formula.
+template <bool GRID>
+int launch_tiles(const void* fp, const void* ip, int n_rows, int n_paths,
+                 int n_streams, int rows_per_block, int months_per_chunk,
+                 int fields, int smem_bytes, void* success, void* final_bal,
+                 void* counts, void* stream) {
+  const int want_fields = GRID ? kGridFields : kProbeFields;
+  const long long want_smem =
+      4LL * (static_cast<long long>(months_per_chunk) * fields * kWarp + 1);
+  if (n_rows < 1 || n_paths < 1 || n_streams != kNS || rows_per_block < 1 ||
+      rows_per_block * kWarp > kTileThreads || months_per_chunk < 1 ||
+      fields != want_fields || smem_bytes != want_smem ||
+      smem_bytes > kMaxSmem ||
+      (n_rows + rows_per_block - 1) / rows_per_block > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaGetLastError();  // clear any earlier, unrelated error
+  auto* kernel = GRID ? grid_kernel : probe_kernel;
+  if (smem_bytes > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((n_paths + kWarp - 1) / kWarp,
+                  (n_rows + rows_per_block - 1) / rows_per_block);
+  kernel<<<grid, rows_per_block * kWarp, smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(fp), static_cast<const int*>(ip), n_rows,
+      n_paths, rows_per_block, months_per_chunk,
+      static_cast<float*>(success), static_cast<float*>(final_bal),
+      static_cast<int*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
 extern "C" {
 
 int mcrt_probe(const void* fp, const void* ip, int n_cand, int n_paths,
-               int retirement_years, int n_streams, void* success,
-               void* final_bal, void* counts, void* stream) {
-  if (n_cand < 1 || n_cand > 65535 || n_paths < 1 || n_streams != kNS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaGetLastError();  // clear any earlier, unrelated error
-  probe_kernel<<<dim3(blocks_for(n_paths), n_cand), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(fp), static_cast<const int*>(ip), n_paths,
-      retirement_years, static_cast<float*>(success),
-      static_cast<float*>(final_bal), static_cast<int*>(counts));
-  return static_cast<int>(cudaGetLastError());
+               int n_streams, int rows_per_block, int months_per_chunk,
+               int fields, int smem_bytes, void* success, void* final_bal,
+               void* counts, void* stream) {
+  return launch_tiles<false>(fp, ip, n_cand, n_paths, n_streams,
+                             rows_per_block, months_per_chunk, fields,
+                             smem_bytes, success, final_bal, counts, stream);
 }
 
-// Rows ride gridDim.y, so 1 <= n_rows <= 65535.
 int mcrt_grid(const void* fp, const void* ip, int n_rows, int n_paths,
-              int retirement_years, int n_streams, void* success,
-              void* final_bal, void* counts, void* stream) {
-  if (n_rows < 1 || n_rows > 65535 || n_paths < 1 || n_streams != kNS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaGetLastError();
-  grid_kernel<<<dim3(blocks_for(n_paths), n_rows), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(fp), static_cast<const int*>(ip), n_paths,
-      retirement_years, static_cast<float*>(success),
-      static_cast<float*>(final_bal), static_cast<int*>(counts));
-  return static_cast<int>(cudaGetLastError());
+              int n_streams, int rows_per_block, int months_per_chunk,
+              int fields, int smem_bytes, void* success, void* final_bal,
+              void* counts, void* stream) {
+  return launch_tiles<true>(fp, ip, n_rows, n_paths, n_streams,
+                            rows_per_block, months_per_chunk, fields,
+                            smem_bytes, success, final_bal, counts, stream);
 }
 
 int mcrt_full(const void* fp, const void* ip, int n_paths,
@@ -761,7 +946,7 @@ int mcrt_full(const void* fp, const void* ip, int n_paths,
   if (n_paths < 1 || traj_len < 1 || retirement_years < 1 || n_streams != kNS)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();
-  full_kernel<<<blocks_for(n_paths), kThreads, 0,
+  full_kernel<<<(n_paths + kFullThreads - 1) / kFullThreads, kFullThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(fp), static_cast<const int*>(ip), n_paths,
       retirement_years, traj_len, static_cast<float*>(vecs),

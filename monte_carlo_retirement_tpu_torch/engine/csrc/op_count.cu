@@ -1,0 +1,211 @@
+// One-step kernels that price the month loop's parts for the bound
+// (engine/bound.py); never launched. Each runs one draw, one parameter
+// application or one month step of month_loop.cu on values it reads from
+// memory, so nothing folds away. As in the kernels, what differs per thread
+// (the lane of the key, the carry, the draws) is read per thread, and what a
+// warp shares (the month, W, t_end, the seed and block, the parameters) from
+// one address, so the compiler keeps the same values on the uniform
+// datapath as there. The SASS of each (cuobjdump -sass of the cubin that
+// engine/_build.py builds per Statics) is that part's instructions plus the
+// loads, stores and per-thread addresses around them; bound.py counts none
+// of the loads and stores.
+//
+//   count_draw_probe   one path-month's draw as the probe tile holds it:
+//                      Philox, normals (crashes: second Philox), growth
+//                      factors; also the full kernel's in-thread draw
+//   count_draw_grid    the same draw as the grid tile holds it: normals only
+//   count_growth       a grid row's parameters applied to one draw
+//   count_accum        one accumulation month (runtime m: every branch)
+//   count_accum_plain  one accumulation month off the year boundary
+//   count_retire       one retirement month (runtime m, W, t_end)
+//   count_retire_plain one retirement month off every yearly branch
+//   count_retire_track / count_retire_track_plain: the same, full mode
+
+#include "month_loop.cu"
+
+namespace {
+
+constexpr int kCarryFloats = 19 + 2 * kSlots;
+
+__device__ __forceinline__ Carry load_carry(const float* __restrict__ v) {
+  Carry c;
+  c.b1 = v[0];
+  c.c1 = v[1];
+  c.b2 = v[2];
+  c.c2 = v[3];
+  c.infl = v[4];
+  c.alive_f = v[5];
+  c.g1a = v[6];
+  c.g2a = v[7];
+  c.preret = v[8] > 0.5f;
+  c.smult = v[9];
+  c.d_mort = v[10];
+  c.glide_scale = v[11];
+  c.ytr = v[12];
+  c.yg = v[13];
+  c.yr = v[14];
+  c.fyg = v[15];
+  c.fyr = v[16];
+  c.start = v[17];
+  c.infl_ret = v[18];
+#pragma unroll
+  for (int s = 0; s < kNS; ++s) {
+    c.stream_start[s] = v[19 + s];
+    c.fixed[s] = v[19 + kSlots + s];
+  }
+  return c;
+}
+
+__device__ __forceinline__ void store_carry(float* __restrict__ v,
+                                            const Carry& c) {
+  v[0] = c.b1;
+  v[1] = c.c1;
+  v[2] = c.b2;
+  v[3] = c.c2;
+  v[4] = c.infl;
+  v[5] = c.alive_f;
+  v[6] = c.g1a;
+  v[7] = c.g2a;
+  v[8] = c.preret ? 1.0f : 0.0f;
+  v[9] = c.smult;
+  v[12] = c.ytr;
+  v[13] = c.yg;
+  v[14] = c.yr;
+  v[15] = c.fyg;
+  v[16] = c.fyr;
+#pragma unroll
+  for (int s = 0; s < kNS; ++s) v[19 + kSlots + s] = c.fixed[s];
+}
+
+__device__ __forceinline__ PathKey key_at(const int* __restrict__ ip) {
+  return path_key(static_cast<uint32_t>(ip[1]), static_cast<uint32_t>(ip[2]),
+                  static_cast<uint32_t>(ip[3]) + threadIdx.x);
+}
+
+// This thread's carry in, and where its carry goes.
+__device__ __forceinline__ const float* carry_in(const float* v) {
+  return v + threadIdx.x * kCarryFloats;
+}
+__device__ __forceinline__ float* carry_out(float* v) {
+  return v + (blockDim.x + threadIdx.x) * kCarryFloats;
+}
+
+template <bool TRACK>
+__device__ __forceinline__ void one_retire(const float* __restrict__ fp,
+                                           const float* __restrict__ g,
+                                           int m, int w, int t_end,
+                                           const Records& rec,
+                                           float* __restrict__ v) {
+  const Scenario sc(fp);
+  Carry c = load_carry(carry_in(v));
+  g += 3 * threadIdx.x;
+  retire_month<TRACK>(sc, c, m, w, t_end, g[0], g[1], g[2], rec);
+  store_carry(carry_out(v), c);
+}
+
+}  // namespace
+
+extern "C" {
+
+__global__ void count_draw_probe(const float* __restrict__ fp,
+                                 const int* __restrict__ ip,
+                                 float* __restrict__ out) {
+  const Scenario sc(fp);
+  float g1, gi, g2;
+  growth(sc, month_shock(ip[0], key_at(ip)), g1, gi, g2);
+  out += 3 * threadIdx.x;
+  out[0] = g1;
+  out[1] = gi;
+  out[2] = g2;
+}
+
+__global__ void count_draw_grid(const int* __restrict__ ip,
+                                float* __restrict__ out) {
+  const Shock s = month_shock(ip[0], key_at(ip));
+  out += 5 * threadIdx.x;
+  out[0] = s.z_eq;
+  out[1] = s.z_ind;
+  out[2] = s.z_prem;
+  if constexpr (kJumps) {
+    out[3] = s.u;
+    out[4] = s.z_j;
+  }
+}
+
+__global__ void count_growth(const float* __restrict__ fp,
+                             const float* __restrict__ z,
+                             float* __restrict__ out) {
+  const Scenario sc(fp);
+  z += 5 * threadIdx.x;
+  out += 3 * threadIdx.x;
+  Shock s;
+  s.z_eq = z[0];
+  s.z_ind = z[1];
+  s.z_prem = z[2];
+  s.u = z[3];
+  s.z_j = z[4];
+  float g1, gi, g2;
+  growth(sc, s, g1, gi, g2);
+  out[0] = g1;
+  out[1] = gi;
+  out[2] = g2;
+}
+
+__global__ void count_accum(const float* __restrict__ fp,
+                            const float* __restrict__ g,
+                            const int* __restrict__ ip,
+                            float* __restrict__ v) {
+  const Scenario sc(fp);
+  Carry c = load_carry(carry_in(v));
+  g += 3 * threadIdx.x;
+  accum_month(sc, c, ip[0], g[0], g[1], g[2]);
+  store_carry(carry_out(v), c);
+}
+
+__global__ void count_accum_plain(const float* __restrict__ fp,
+                                  const float* __restrict__ g,
+                                  float* __restrict__ v) {
+  const Scenario sc(fp);
+  Carry c = load_carry(carry_in(v));
+  g += 3 * threadIdx.x;
+  accum_month(sc, c, 5, g[0], g[1], g[2]);
+  store_carry(carry_out(v), c);
+}
+
+__global__ void count_retire(const float* __restrict__ fp,
+                             const float* __restrict__ g,
+                             const int* __restrict__ ip,
+                             float* __restrict__ v) {
+  one_retire<false>(fp, g, ip[0], ip[1], ip[2], Records{}, v);
+}
+
+// m = 14, W = 12: retirement month 2, off the year boundary, the guardrails'
+// year start and the terminal settle.
+__global__ void count_retire_plain(const float* __restrict__ fp,
+                                   const float* __restrict__ g,
+                                   const int* __restrict__ ip,
+                                   float* __restrict__ v) {
+  one_retire<false>(fp, g, 14, 12, ip[2], Records{}, v);
+}
+
+__global__ void count_retire_track(const float* __restrict__ fp,
+                                   const float* __restrict__ g,
+                                   const int* __restrict__ ip,
+                                   float* __restrict__ series,
+                                   float* __restrict__ v) {
+  const Records rec{series, series + 1, series + 2, ip[3], ip[4],
+                    ip[5],  ip[6],      ip[7],      ip[8]};
+  one_retire<true>(fp, g, ip[0], ip[1], ip[2], rec, v);
+}
+
+__global__ void count_retire_track_plain(const float* __restrict__ fp,
+                                         const float* __restrict__ g,
+                                         const int* __restrict__ ip,
+                                         float* __restrict__ series,
+                                         float* __restrict__ v) {
+  const Records rec{series, series + 1, series + 2, ip[3], ip[4],
+                    ip[5],  ip[6],      ip[7],      ip[8]};
+  one_retire<true>(fp, g, 14, 12, ip[2], rec, v);
+}
+
+}  // extern "C"

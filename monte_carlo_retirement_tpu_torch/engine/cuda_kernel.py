@@ -17,6 +17,11 @@ kernel is a form of one month loop (``csrc/month_loop.cu``):
     (``pallas_kernel.py:1405``): the tracked loop -> seven per-path vectors
     and the yearly trajectory, price-level and withdrawal-rate series.
 
+The probe and grid kernels draw each path-month once for all the rows of
+a block and share it through shared memory; :func:`tile_plan` decides
+their launch (rows and paths per block, months per draw tile) and
+:func:`tile_work` counts the work behind their bound (``engine/bound.py``).
+
 Beside each wrapper is its plain PyTorch version (:func:`probe_plain`,
 :func:`grid_plain`, :func:`simulate_plain`, :func:`simulate_full_plain`,
 thin calls into ``engine/kernel.py``). A wrapper takes the plain version
@@ -49,9 +54,16 @@ from ..models.retirement import SimParams, prune_streams
 LAUNCHES: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0}
 PLAIN_CALLS: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0}
 
-# Rows of a probe or grid launch ride gridDim.y.
+# Rows of a probe or grid launch: groups of rows ride gridDim.y.
 MAX_ROWS = 65535
 
+# The tiled launches of probe_kernel and grid_kernel (csrc/month_loop.cu):
+# a block holds C rows x 32 paths, one warp per row, and draws M months at a
+# time into a shared-memory tile that its rows share.
+WARP = 32  # paths per block; 32 divides a 4096-path key block
+ROWS_PER_BLOCK = 16  # most rows sharing one draw tile (512 threads)
+MONTHS_PER_ROW = 16  # months per draw tile for each row of the block ...
+MAX_TILE_MONTHS = 64  # ... up to this many
 
 def reset_counts() -> None:
     for d in (LAUNCHES, PLAIN_CALLS):
@@ -364,23 +376,103 @@ class SimulateOut(NamedTuple):
     final_balance: torch.Tensor  # (n,)
 
 
+class TilePlan(NamedTuple):
+    """One tiled launch of ``probe_kernel`` or ``grid_kernel``: ``rows`` x
+    ``n_paths`` in blocks of ``rows_per_block`` rows x 32 paths, drawing
+    ``months_per_chunk`` months of ``fields`` floats per path-month into
+    the block's tile at a time."""
+
+    rows: int
+    n_paths: int
+    rows_per_block: int
+    months_per_chunk: int
+    fields: int
+
+    @property
+    def threads(self) -> int:
+        return self.rows_per_block * WARP
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        """(blocks over paths, blocks over rows)."""
+        return (-(-self.n_paths // WARP), -(-self.rows // self.rows_per_block))
+
+    @property
+    def smem_bytes(self) -> int:
+        """The draw tile [M][fields][32] floats and the block's largest
+        t_end."""
+        return 4 * (self.months_per_chunk * self.fields * WARP + 1)
+
+    def cell(self, bx, by, tid):
+        """(row, path) of thread ``tid`` of block (bx, by), as the kernel
+        maps it (ints or numpy arrays); a row >= ``rows`` or a path >=
+        ``n_paths`` is padding."""
+        warp, lane = divmod(tid, WARP)
+        return by * self.rows_per_block + warp, bx * WARP + lane
+
+
+def tile_plan(rows: int, n_paths: int, statics: Statics, kind: str) -> TilePlan:
+    """The launch of ``rows`` x ``n_paths`` rows of a ``kind`` ("probe" or
+    "grid") kernel: the rows split into the fewest groups of at most
+    ``ROWS_PER_BLOCK``, as even as they go, one block of C rows x 32 paths
+    each, drawing ``MONTHS_PER_ROW`` x C months (at most
+    ``MAX_TILE_MONTHS``) per tile, so a block of few rows, of which an SM
+    holds many, keeps a small tile. A path-month of the tile is the
+    probe's three growth factors (its rows share one parameter block), or
+    the grid's three normals plus, with crashes, the crash uniform and
+    normal."""
+    rows, n_paths = int(rows), int(n_paths)
+    if rows < 1 or n_paths < 1:
+        raise ValueError(f"a tiled launch needs rows and paths, got {rows} x {n_paths}")
+    if kind not in ("probe", "grid"):
+        raise ValueError(f"tile kind is 'probe' or 'grid', got {kind!r}")
+    per_block = -(-rows // -(-rows // ROWS_PER_BLOCK))
+    return TilePlan(rows, n_paths, per_block,
+                    min(MAX_TILE_MONTHS, MONTHS_PER_ROW * per_block),
+                    5 if kind == "grid" and statics.jumps else 3)
+
+
+def tile_work(plan: TilePlan, working_months, t_end) -> Dict[str, int]:
+    """The least work of one tiled launch, counted as the kernel does it:
+    ``draws`` charges each path-month once per block, over the block's real
+    paths, up to the largest t_end of its rows; ``accum`` and ``retire``
+    charge each row's body once per (row, path, month) up to the row's own
+    W and t_end."""
+    w = [int(v) for v in working_months]
+    t = [int(v) for v in t_end]
+    if len(w) != plan.rows or len(t) != plan.rows:
+        raise ValueError("one W and one t_end per row")
+    C = plan.rows_per_block
+    draws = sum(plan.n_paths * max(t[g * C:(g + 1) * C])
+                for g in range(plan.grid[1]))
+    return {
+        "draws": draws,
+        "accum": plan.n_paths * sum(w),
+        "retire": plan.n_paths * sum(te - wi for wi, te in zip(w, t)),
+    }
+
+
 def _launch_rows(entry: str, packed: Packed, statics: Statics,
-                 retirement_years: int, n_paths: int) -> ProbeOut:
+                 n_paths: int, plan: TilePlan) -> ProbeOut:
     """One launch of ``probe_kernel`` (``mcrt_probe``) or ``grid_kernel``
-    (``mcrt_grid``): K rows x ``n_paths`` paths."""
+    (``mcrt_grid``): K rows x ``n_paths`` paths as ``plan`` tiles them."""
     from . import _build
 
+    K, n = packed.ip.shape[0], int(n_paths)
+    if (plan.rows, plan.n_paths) != (K, n):
+        raise ValueError(f"{plan} does not tile {K} rows x {n} paths")
     lib = _build.load(statics)
     dev = packed.device
-    K, n = packed.ip.shape[0], int(n_paths)
     success = torch.empty((K, n), dtype=torch.float32, device=dev)
     final = torch.empty((K, n), dtype=torch.float32, device=dev)
     counts = torch.zeros(K, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             packed.fp.data_ptr(), packed.ip.data_ptr(), K, n,
-            int(retirement_years), packed.n_streams, success.data_ptr(),
-            final.data_ptr(), counts.data_ptr(), _stream_ptr(dev),
+            packed.n_streams, plan.rows_per_block, plan.months_per_chunk,
+            plan.fields, plan.smem_bytes,
+            success.data_ptr(), final.data_ptr(), counts.data_ptr(),
+            _stream_ptr(dev),
         )
     _build.check(lib, rc, f"{entry} launch")
     return ProbeOut(counts.to(torch.int64), success, final)
@@ -407,7 +499,8 @@ def probe(packed: Packed, statics: Statics, retirement_years: int,
         raise ValueError("probe takes one shared parameter block (pack_params)")
     if _runs_plain(packed, statics, "probe"):
         return probe_plain(packed, statics, retirement_years, n_paths)
-    out = _launch_rows("mcrt_probe", packed, statics, retirement_years, n_paths)
+    plan = tile_plan(packed.ip.shape[0], n_paths, statics, "probe")
+    out = _launch_rows("mcrt_probe", packed, statics, n_paths, plan)
     LAUNCHES["probe"] += 1
     return out
 
@@ -432,7 +525,8 @@ def grid(packed: Packed, statics: Statics, retirement_years: int,
         raise ValueError("grid takes one parameter row per scenario (pack_grid)")
     if _runs_plain(packed, statics, "grid"):
         return grid_plain(packed, statics, retirement_years, n_paths)
-    out = _launch_rows("mcrt_grid", packed, statics, retirement_years, n_paths)
+    plan = tile_plan(packed.ip.shape[0], n_paths, statics, "grid")
+    out = _launch_rows("mcrt_grid", packed, statics, n_paths, plan)
     LAUNCHES["grid"] += 1
     return out
 
@@ -461,7 +555,8 @@ def simulate(packed: Packed, statics: Statics, retirement_years: int,
     row = _one_row(packed)
     if _runs_plain(packed, statics, "simulate"):
         return simulate_plain(packed, statics, retirement_years, n_paths)
-    out = _launch_rows("mcrt_grid", row, statics, retirement_years, n_paths)
+    plan = tile_plan(1, n_paths, statics, "grid")
+    out = _launch_rows("mcrt_grid", row, statics, n_paths, plan)
     LAUNCHES["simulate"] += 1
     return SimulateOut(out.success[0], out.final_balance[0])
 

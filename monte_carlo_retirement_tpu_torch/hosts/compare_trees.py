@@ -1,0 +1,134 @@
+"""Two checkouts of the port on one card: the same launches, their results
+and their times.
+
+    python3 monte_carlo_retirement_tpu_torch/hosts/compare_trees.py run ROOT LABEL OUT.jsonl
+    python3 monte_carlo_retirement_tpu_torch/hosts/compare_trees.py report OUT.jsonl
+
+``run`` imports the package and ``chip_smoke.py`` of the checkout at ROOT
+(its kernels build into ROOT's own build directory) and appends one JSON
+line to OUT.jsonl: at chip_smoke.py phase 6's shapes, for the 16-candidate
+probe at 1M x 600 under config.json's Statics and under
+``chip_smoke.ALL_ON``, one 16-row chunk of the 16 x 16 grid (W=231, R=50,
+1M paths), ``simulate`` at 1M x 600 and the full kernel at 1M x 600: the
+per-row survivor counts, the float64 sum of each row's final balances, a
+checksum of the bits of every output, and the CUDA-event time (warm, min
+of 5). Run it once per checkout in turns (parent, change, change,
+parent) so both see the same card. ``report`` prints the times side by
+side and every result that differs between the labels.
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import os
+import sys
+
+
+def _digest(t) -> int:
+    """A position-weighted checksum of a tensor's bits."""
+    import torch
+
+    bits = t.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    weight = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return int((bits * weight).sum())
+
+
+def run(root: str, label: str, out_path: str) -> int:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    cs = importlib.import_module("chip_smoke")
+    pkg = cs.PKG
+    ck = importlib.import_module(f"{pkg}.engine.cuda_kernel")
+    Engine = importlib.import_module(f"{pkg}.engine.runner").Engine
+    sb = importlib.import_module(f"{pkg}.engine.scenario_batch")
+    stack_params = importlib.import_module(f"{pkg}.models.retirement").stack_params
+    if not ck.__file__.startswith(root):
+        raise AssertionError(f"imported {ck.__file__}, not the checkout at {root}")
+
+    n = cs.N_FULL
+    scen = dict(retirement_years=50, initial_balance=1_500_000.0,
+                monthly_expenses=4_000.0)
+    eng = Engine(cs._config(**scen), device="cuda")
+    eng_on = Engine(cs._config(**scen, **cs.ALL_ON), device="cuda")
+    R = eng.retirement_years
+    L = 1 + eng._t_scan(0) // 12
+    configs = cs._grid_chunk_configs()
+    gst = sb.grid_statics(configs)
+    GR = configs[0].retirement_years
+    gpacked = ck.pack_grid(stack_params(configs), sb._grid_stream_seed(cs.SEED),
+                           [cs.GRID_W] * len(configs), GR, device="cuda")
+    probe = eng._pack(list(range(16)), "search")
+    probe_on = eng_on._pack(list(range(16)), "search")
+    full = eng._pack(0, "final")
+
+    cases = {
+        "probe": lambda: ck.probe(probe, eng.statics, R, n),
+        "probe_all_on": lambda: ck.probe(probe_on, eng_on.statics, R, n),
+        "grid": lambda: ck.grid(gpacked, gst, GR, n),
+        "simulate": lambda: ck.simulate(full, eng.statics, R, n),
+        "full": lambda: ck.simulate_full(full, eng.statics, R, n, L),
+    }
+    line = {"label": label, "root": root, "card": cs._card_line()}
+    for name, fn in cases.items():
+        out = fn()
+        torch.cuda.synchronize()
+        if name == "full":
+            res = {k: _digest(v) for k, v in out.items()}
+        else:
+            success, final = out.success, out.final_balance
+            if name == "simulate":
+                success, final = success[None], final[None]
+            res = {
+                "counts": (success > 0.5).sum(dim=1).tolist(),
+                "kernel_counts": (out.counts.tolist() if name != "simulate"
+                                  else None),
+                "final_sum": final.double().sum(dim=1).tolist(),
+                "success_bits": _digest(success),
+                "final_bits": _digest(final),
+            }
+        res["ms"] = cs._time_ms(fn)
+        line[name] = res
+        print(f"[{label}] {name}: {res['ms']:.3f} ms")
+    with open(out_path, "a", encoding="utf-8") as fh:
+        fh.write(json.dumps(line) + "\n")
+    return 0
+
+
+def report(out_path: str) -> int:
+    with open(out_path, encoding="utf-8") as fh:
+        lines = [json.loads(s) for s in fh if s.strip()]
+    names = [k for k in lines[0] if isinstance(lines[0][k], dict)]
+    print(f"card: {lines[0]['card']}; order: " + ", ".join(x["label"] for x in lines))
+    for name in names:
+        print(f"{name}: " + " / ".join(f"{x[name]['ms']:.3f}" for x in lines) + " ms")
+    first = {}
+    differ = 0
+    for x in lines:
+        ref = first.setdefault(x["label"], x)
+        for name in names:
+            a = {k: v for k, v in x[name].items() if k != "ms"}
+            b = {k: v for k, v in ref[name].items() if k != "ms"}
+            if a != b:
+                differ += 1
+                print(f"{name}: {x['label']} differs between its own runs")
+    labels = list(first)
+    for other in labels[1:]:
+        for name in names:
+            a, b = first[labels[0]][name], first[other][name]
+            for key in a:
+                if key != "ms" and a[key] != b[key]:
+                    differ += 1
+                    print(f"{name}.{key}: {labels[0]} {a[key]} vs {other} {b[key]}")
+    print(f"results that differ: {differ}")
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "run":
+        raise SystemExit(run(*sys.argv[2:]))
+    if len(sys.argv) == 3 and sys.argv[1] == "report":
+        raise SystemExit(report(sys.argv[2]))
+    raise SystemExit(__doc__)
