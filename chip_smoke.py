@@ -72,11 +72,31 @@ result):
      other branch in one version); rule-off bit-identity (the parameters of
      every disabled feature poisoned: probe and full kernel outputs
      bit-equal); antithetic pairing (the even blocks of an antithetic
-     probe bit-equal to an iid probe's blocks, the odd ones not).
+     probe bit-equal to an iid probe's blocks, the odd ones not);
+ 10. the port's HTTP server (hosts/server.py, create_app(device="cuda"))
+     in this process behind aiohttp's TestServer on 127.0.0.1, launch
+     counters reset before each step, no plain call allowed: (a) POST
+     /api/simulate with phase 5b's config (1M search + 1M final paths, so
+     the response is capped and the final run reduced on the card): the
+     search month and the successful paths equal 5b's, and every integer
+     field equals, every float agrees within PAYLOAD_RTOL x |value| +
+     PAYLOAD_ATOL with, the pandas payload of the same run (raw vectors to
+     the host, binned there); (b) the same on /api/simulate/stream: events
+     phase(search), search_iter..., search_complete, phase(final_sim),
+     result equal to (a)'s; (c) four seeds at once, each answer equal to
+     the same request alone, the concurrent launch counts exact; (d)
+     /api/grid (16 variants x 1M), /api/sensitivity and /api/optimize
+     (65,536 paths) valid and on the grid kernel, include_ad a JSON 400
+     naming ROADMAP A9; (e) times: warm /api/simulate wall (min and median
+     of 5) split into search, final run, payload assembly and JSON
+     encoding, the response's bytes, the same with include_raw_paths, and
+     the first request of a fresh server process with an empty kernel
+     build directory, without and with its warmup.
 
 The kernels' line comes before the last two: {"kernels": [...]}, one row
-per kernel with its launches on the main path (phase 5) and on the grid
-path (phase 8), its time, bound and plain version's time; then the card's
+per kernel with its launches on the main path (phase 5), the grid path
+(phase 8) and the server's routes (phase 10a-d), its time, bound and plain
+version's time; then the card's
 name and power limit on their own line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -111,6 +131,11 @@ NORMAL_RTOL = 2e-6
 FIELD_RTOL = 5e-3  # the JAX suite's q999 bound: < 1e-3 of entries beyond it
 PATH_SHARE = 1e-3  # share of paths whose flag / ruin month / NaN may differ
 ONE_MONTH_YEARS = 1.0 / 12.0
+SERVER_REPEATS = 5  # warm /api/simulate requests timed in phase 10e
+# Phase 10a's float fields: the card interpolates percentiles and means in
+# float32, pandas in float64 (relative), and the wire rounds to cents.
+PAYLOAD_RTOL = 2e-6
+PAYLOAD_ATOL = 0.01
 CRASHES = {"frequency_per_year": 0.2, "mean_drop_pct": 25.0,
            "size_volatility": 0.1, "inv2_beta": 0.3}
 LONGEVITY = {"mode_age": 88.0, "dispersion_years": 10.0, "max_age": 110.0}
@@ -604,6 +629,9 @@ def phase_main_path(report):
         L = expected_trajectory_length(months, cfg.retirement_years)
         if extensions:
             report["all_on_months"] = months
+        if label == "b":  # phase 10a serves the same request
+            report["5b"] = {"months": months,
+                            "successes": int(summary_df["Success"].sum())}
         print(f"[5{label}] {'all extensions on, ' if extensions else ''}"
               f"search {cfg.num_simulations_search:,} paths -> "
               f"{months} months ({len(curve)} candidates, {prob:.2f}%) in "
@@ -1028,6 +1056,389 @@ def phase_extensions(report):
         raise AssertionError("[9] antithetic pairing is wrong on the card")
 
 
+def _leaves(node, path=""):
+    if isinstance(node, dict):
+        for key, value in node.items():
+            yield from _leaves(value, f"{path}.{key}")
+    elif isinstance(node, list):
+        for i, value in enumerate(node):
+            yield from _leaves(value, f"{path}[{i}]")
+    else:
+        yield path, node
+
+
+def _compare_payloads(tag, got, want):
+    """Two JSON payloads: the same keys and list lengths, every integer,
+    string, bool and null leaf equal, every float within PAYLOAD_RTOL of
+    its value plus PAYLOAD_ATOL (the card interpolates percentiles in
+    float32, pandas in float64; the wire rounds to cents). Returns (integer
+    leaves, float leaves, (worst float difference, its path, its relative
+    size))."""
+    g, w = dict(_leaves(got)), dict(_leaves(want))
+    if g.keys() != w.keys():
+        raise AssertionError(f"[{tag}] payload structure differs at "
+                             f"{sorted(g.keys() ^ w.keys())[:8]}")
+    ints, floats, worst = 0, 0, (0.0, "", 0.0)
+    for path, b in w.items():
+        a = g[path]
+        if isinstance(b, float) and isinstance(a, float):
+            floats += 1
+            diff = abs(a - b)
+            if not diff <= PAYLOAD_RTOL * abs(b) + PAYLOAD_ATOL + 1e-9:
+                raise AssertionError(f"[{tag}] {path}: {a!r} vs {b!r}")
+            worst = max(worst, (diff, path, diff / max(abs(b), 1e-30)))
+        else:
+            ints += isinstance(b, int) and not isinstance(b, bool)
+            if a != b or type(a) is not type(b):
+                raise AssertionError(f"[{tag}] {path}: {a!r} != {b!r}")
+    return ints, floats, worst
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _wait_for(what, ready, timeout_s):
+    t0 = time.perf_counter()
+    while not ready():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"[10e] {what} not reached in {timeout_s} s")
+        time.sleep(0.05)
+
+
+def _cold_server(body, warmup):
+    """A fresh server process on the card (python -m ...hosts.server) with
+    an empty kernel build directory: seconds from its start to its first
+    answer, to the end of its warmup (or None), of its first
+    /api/simulate, and that answer."""
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    with tempfile.TemporaryDirectory() as tmp:
+        port = _free_port()
+        url = f"http://127.0.0.1:{port}"
+        env = dict(os.environ, PYTHONPATH=REPO, MCRT_HOST="127.0.0.1",
+                   MCRT_PORT=str(port), MCRT_WARMUP="1" if warmup else "0",
+                   MCRT_TORCH_BUILD_DIR=os.path.join(tmp, "build"))
+        log_path = os.path.join(tmp, "server.log")  # the server's own log
+        with open(os.path.join(tmp, "stderr"), "w") as err:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen([sys.executable, "-m", f"{PKG}.hosts.server"],
+                                    cwd=tmp, env=env, stdout=subprocess.DEVNULL,
+                                    stderr=err)
+            try:
+                def answers():
+                    if proc.poll() is not None:
+                        raise AssertionError(f"[10e] server exited {proc.returncode}")
+                    try:
+                        with urllib.request.urlopen(url + "/api/health", timeout=5):
+                            return True
+                    except (urllib.error.URLError, ConnectionError):
+                        return False
+
+                _wait_for("server start", answers, 120)
+                t_up = time.perf_counter() - t0
+                t_warm = None
+                if warmup:
+                    def warmed():
+                        text = open(log_path).read() if os.path.exists(log_path) else ""
+                        if "Warmup failed" in text:
+                            raise AssertionError("[10e] server warmup failed")
+                        return "Warmup complete" in text
+
+                    _wait_for("warmup", warmed, 600)
+                    t_warm = time.perf_counter() - t0
+                request = urllib.request.Request(
+                    url + "/api/simulate", data=json.dumps(body).encode(),
+                    headers={"Content-Type": "application/json"})
+                t1 = time.perf_counter()
+                with urllib.request.urlopen(request, timeout=900) as resp:
+                    blob = resp.read()
+                t_first = time.perf_counter() - t1
+            except BaseException:
+                err.flush()
+                print(open(err.name).read()[-3000:], file=sys.stderr)
+                raise
+            finally:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    return t_up, t_warm, t_first, json.loads(blob)
+
+
+def phase_server(report):
+    """10: the port's HTTP server on the card."""
+    import asyncio
+    import statistics
+
+    import aiohttp
+    from aiohttp.test_utils import TestClient, TestServer
+    from monte_carlo_retirement_tpu_torch.config import Config
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine.simulator import (
+        RetirementMonteCarloSimulator,
+    )
+    from monte_carlo_retirement_tpu_torch.hosts import payload, server
+    from monte_carlo_retirement_tpu_torch.hosts.grid import GridResponse
+    from monte_carlo_retirement_tpu_torch.hosts.optimize import OptimizeResponse
+    from monte_carlo_retirement_tpu_torch.hosts.schemas import SimulationResponse
+    from monte_carlo_retirement_tpu_torch.hosts.sensitivity import (
+        SensitivityResponse,
+    )
+
+    raw = _raw_config(num_simulations_search=N_FULL, num_simulations_main=N_FULL)
+    body = {"config": raw}
+    launches = report["launches"]
+    served = report["launches_server"] = {}
+    print(f"[10] HTTP exercised: aiohttp {aiohttp.__version__}; the port's app "
+          f"(create_app(device='cuda')) in this process behind "
+          f"aiohttp.test_utils.TestServer on 127.0.0.1, requests from its "
+          f"TestClient")
+
+    def counted(tag, need):
+        """The launches since the last reset: no plain call, each kernel
+        of ``need`` launched; they count as the server path's."""
+        ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+        if any(plain.values()):
+            raise AssertionError(f"[{tag}] plain versions ran: {plain}")
+        if not all(ran[k] for k in need):
+            raise AssertionError(f"[{tag}] a kernel was not launched: {ran}")
+        for name, count in ran.items():
+            launches[name] = launches.get(name, 0) + count
+            served[name] = served.get(name, 0) + count
+        return ran
+
+    async def post(client, path, data):
+        t0 = time.perf_counter()
+        resp = await client.post(path, json=data)
+        blob = await resp.read()
+        wall = time.perf_counter() - t0
+        if resp.status != 200:
+            raise AssertionError(f"{path}: {resp.status} {blob[:500]!r}")
+        return blob, wall
+
+    async def scenario(client):
+        out = {}
+        # 10a: phase 5b's request, capped, so the final run is reduced.
+        ck.reset_counts()
+        blob, wall = await post(client, "/api/simulate", body)
+        ran = counted("10a", ("probe", "full"))
+        res = out["10a"] = json.loads(blob)
+        SimulationResponse.model_validate(res)
+        binned = res["histogram"]["binned"]
+        months = res["summary"]["required_working_months"]
+        print(f"[10a] /api/simulate, 1M search + 1M final paths: {months} months, "
+              f"success {res['summary']['success_probability']}%, SWR "
+              f"{res['summary']['swr']}%, {binned['success_count']:,} successful "
+              f"paths; {len(blob):,} bytes in {wall:.3f} s; launches {ran}")
+        if ran["full"] != 1 or res["histogram"]["final_balances"]:
+            raise AssertionError("[10a] the final run was not one reduced run")
+        if (months, binned["success_count"]) != (report["5b"]["months"],
+                                                 report["5b"]["successes"]):
+            raise AssertionError(f"[10a] differs from phase 5b {report['5b']}")
+        print("[10a]   search month and successful paths equal phase 5b's")
+
+        # 10b: the same request on the stream.
+        ck.reset_counts()
+        resp = await client.post("/api/simulate/stream", json=body)
+        events = [json.loads(line[len("data: "):])
+                  for line in (await resp.text()).splitlines()
+                  if line.startswith("data: ")]
+        ran = counted("10b", ("probe", "full"))
+        kinds = [e["type"] for e in events]
+        done = kinds.index("search_complete") if "search_complete" in kinds else 0
+        if not (resp.status == 200 and kinds[0] == "phase"
+                and events[0]["phase"] == "search" and done > 1
+                and set(kinds[1:done]) <= {"search_iter", "search_refining"}
+                and kinds[done + 1:] == ["phase", "result"]
+                and events[done + 1]["phase"] == "final_sim"):
+            raise AssertionError(f"[10b] event order {kinds}")
+        if events[-1]["data"] != res:
+            raise AssertionError("[10b] the stream's result differs from 10a's")
+        print(f"[10b] /api/simulate/stream: {len(events)} events, phase(search), "
+              f"{done - 1} search_iter/refining, search_complete, "
+              f"phase(final_sim), result equal to 10a's; launches {ran}")
+
+        # 10c: four seeds at once, then each alone.
+        bodies = [{"config": {**raw, "seed": SEED + k}} for k in range(1, 5)]
+        ck.reset_counts()
+        together = await asyncio.gather(*(post(client, "/api/simulate", b)
+                                          for b in bodies))
+        ran_together = counted("10c", ("probe", "full"))
+        alone, probes = [], 0
+        for b in bodies:
+            ck.reset_counts()
+            alone.append(await post(client, "/api/simulate", b))
+            probes += counted("10c", ("probe", "full"))["probe"]
+        if [json.loads(t[0]) for t in together] != [json.loads(a[0]) for a in alone]:
+            raise AssertionError("[10c] concurrent answers differ from serial ones")
+        if ran_together["full"] != 4 or ran_together["probe"] != probes:
+            raise AssertionError(f"[10c] concurrent counts {ran_together} vs "
+                                 f"{probes} probes alone")
+        print(f"[10c] 4 seeds concurrently (wall {max(t[1] for t in together):.3f} "
+              f"s) == each alone (walls "
+              f"{', '.join(f'{a[1]:.3f}' for a in alone)} s); launches "
+              f"together {ran_together}, probes alone {probes}")
+
+        # 10d: the analysis routes on the grid kernel.
+        grid_raw = _grid_raw()
+        start = GRID_CHUNK_ROW * GRID_SIDE
+        checks = (
+            ("/api/grid", GridResponse, {
+                "config": grid_raw, "working_months": GRID_W, "num_paths": N_FULL,
+                "chunk_size": GRID_SIDE, "variants": [
+                    {"overrides": o}
+                    for o in _grid_overrides()[start:start + GRID_SIDE]]}),
+            ("/api/sensitivity", SensitivityResponse, {
+                "config": grid_raw, "working_months": GRID_W,
+                "num_paths": N_CHECK}),
+            ("/api/optimize", OptimizeResponse, {
+                "config": grid_raw, "working_months": GRID_W, "num_paths": N_CHECK,
+                "param": "allocation_inv1_pct", "lo": 0.3, "hi": 0.9,
+                "points": 5, "rounds": 2}),
+        )
+        for path, model, data in checks:
+            ck.reset_counts()
+            blob, wall = await post(client, path, data)
+            ran = counted("10d", ("grid",))
+            model.model_validate(json.loads(blob))
+            print(f"[10d] {path}: 200, valid {model.__name__}, {wall:.3f} s, "
+                  f"launches {ran}")
+        if ran["grid"] != 2:
+            raise AssertionError(f"[10d] optimize launched {ran}")
+        resp = await client.post("/api/sensitivity", json={
+            **checks[1][2], "include_ad": True})
+        detail = (await resp.json())["detail"]
+        if resp.status != 400 or "A9" not in detail:
+            raise AssertionError(f"[10d] include_ad: {resp.status} {detail}")
+        print("[10d] include_ad: 400, JSON detail naming ROADMAP A9")
+
+        # 10e: warm times over HTTP, capped and raw.
+        walls = []
+        for _ in range(SERVER_REPEATS):
+            blob, wall = await post(client, "/api/simulate", body)
+            walls.append(wall)
+            if json.loads(blob) != res:
+                raise AssertionError("[10e] a warm answer differs from 10a's")
+        out["walls"], out["bytes"] = walls, len(blob)
+        raw_walls = []
+        for _ in range(3):
+            raw_blob, wall = await post(client, "/api/simulate",
+                                        {**body, "include_raw_paths": True})
+            raw_walls.append(wall)
+        out["raw_walls"], out["raw_bytes"] = raw_walls, len(raw_blob)
+        return out
+
+    async def serve():
+        client = TestClient(TestServer(server.create_app(device="cuda"),
+                                       host="127.0.0.1"))
+        await client.start_server()
+        try:
+            return await scenario(client)
+        finally:
+            await client.close()
+
+    warm_env = os.environ.get("MCRT_WARMUP")
+    os.environ["MCRT_WARMUP"] = "0"  # phases 1-9 built and launched it all
+    try:
+        out = asyncio.run(serve())
+    finally:
+        if warm_env is None:
+            os.environ.pop("MCRT_WARMUP")
+        else:
+            os.environ["MCRT_WARMUP"] = warm_env
+    res = out["10a"]
+
+    # 10a, second half: the pandas payload of the same run (raw per-path
+    # arrays to the host, binned there by bin_successful_finals).
+    cfg = Config(**raw)
+    sim = RetirementMonteCarloSimulator(cfg, device="cuda")
+    sim.use_final_seeds()
+    months = res["summary"]["required_working_months"]
+    want = payload._build_result_pandas(cfg, sim, months,
+                                        res["search_curve"]["points"], capped=True)
+    want = json.loads(json.dumps(
+        SimulationResponse.model_validate(want).model_dump(mode="json")))
+    ints, floats, (worst, where, rel) = _compare_payloads("10a", res, want)
+    print(f"[10a]   vs the pandas payload of the same run: {ints} integer "
+          f"fields equal (histogram, ruin and WR counts), {floats} floats within "
+          f"{PAYLOAD_RTOL:g} x |value| + {PAYLOAD_ATOL} (worst {worst:.4g} at "
+          f"{where}, {rel:.3g} of its value)")
+
+    # 10e: the warm request split, in this process, through the same
+    # functions the handler calls.
+    def split_once():
+        t0 = time.perf_counter()
+        sim = RetirementMonteCarloSimulator(cfg, device="cuda")
+        months, _prob, curve = sim.find_minimum_working_months(verbose=False)
+        t1 = time.perf_counter()
+        sim.use_final_seeds()
+        final = {}
+
+        class Timed:
+            def run_result_reduced(self, w, n):
+                s = time.perf_counter()
+                out = sim.run_result_reduced(w, n)
+                final["s"] = time.perf_counter() - s
+                return out
+
+        result = payload.build_result(cfg, Timed(), months, search_curve=curve)
+        t2 = time.perf_counter()
+        text = json.dumps(SimulationResponse.model_validate(result).model_dump(
+            mode="json"))
+        t3 = time.perf_counter()
+        if json.loads(text) != res:
+            raise AssertionError("[10e] the split run's payload differs from 10a's")
+        return {"search": t1 - t0, "final run": final["s"],
+                "payload assembly": t2 - t1 - final["s"], "JSON encoding": t3 - t2}
+
+    splits = [split_once() for _ in range(SERVER_REPEATS)]
+    card = report["card"]
+    walls = out["walls"]
+    times = {
+        "wall_min": min(walls), "wall_median": statistics.median(walls),
+        "split_median": {k: statistics.median(s[k] for s in splits)
+                         for k in splits[0]},
+        "split_min": {k: min(s[k] for s in splits) for k in splits[0]},
+        "bytes": out["bytes"], "raw_wall_min": min(out["raw_walls"]),
+        "raw_wall_median": statistics.median(out["raw_walls"]),
+        "raw_bytes": out["raw_bytes"],
+    }
+    rest = times["wall_median"] - sum(times["split_median"].values())
+    print(f"[10e] warm /api/simulate, 1M/1M, over HTTP on {card}: wall min "
+          f"{times['wall_min']:.4f} s, median {times['wall_median']:.4f} s of "
+          f"{SERVER_REPEATS}; response {times['bytes']:,} bytes")
+    print("[10e]   split (same functions in this process, min / median of "
+          f"{SERVER_REPEATS}): " + ", ".join(
+              f"{k} {times['split_min'][k]:.4f} / {times['split_median'][k]:.4f} s"
+              for k in times["split_median"])
+          + f"; the rest of the median wall (HTTP, pydantic of the request, "
+            f"threads) {rest:.4f} s")
+    print(f"[10e]   include_raw_paths=true: wall min {times['raw_wall_min']:.4f} "
+          f"s, median {times['raw_wall_median']:.4f} s of 3; "
+          f"{times['raw_bytes']:,} bytes")
+    for warmup in (False, True):
+        t_up, t_warm, t_first, answer = _cold_server(body, warmup)
+        if answer != res:
+            raise AssertionError("[10e] the fresh server's answer differs from 10a's")
+        key = "cold_warmup" if warmup else "cold_no_warmup"
+        times[key] = {"up_s": t_up, "warmup_done_s": t_warm, "first_s": t_first}
+        print(f"[10e] fresh server process, empty kernel build directory, "
+              f"MCRT_WARMUP={int(warmup)}: answers /api/health {t_up:.2f} s after "
+              f"start" + (f", warmup done {t_warm:.2f} s after start" if warmup
+                          else "") + f"; first /api/simulate {t_first:.3f} s "
+              f"(answer equal to 10a's)")
+    report["server_times"] = times
+
+
 def main() -> int:
     import torch
 
@@ -1046,7 +1457,7 @@ def main() -> int:
     report = {}
     for phase in (phase_build, phase_normals, phase_probe, phase_full,
                   phase_main_path, phase_timings, phase_grid, phase_modes,
-                  phase_extensions):
+                  phase_extensions, phase_server):
         t0 = time.perf_counter()
         phase(report)
         print(f"--- {phase.__name__}: {time.perf_counter() - t0:.1f} s wall")
@@ -1056,6 +1467,7 @@ def main() -> int:
     times, launches = report["times"], report["launches"]
     main, grid_path, bounds = (report["launches_main"], report["launches_grid"],
                                report["bounds"])
+    served = report["launches_server"]
     pallas = "monte_carlo_retirement_tpu/engine/pallas_kernel.py"
 
     def row(name, key, replaces, err, ms, plain, bound_key, **extra):
@@ -1063,6 +1475,7 @@ def main() -> int:
                 "replaces": f"{pallas}:{replaces}", "launches": launches[key],
                 "launches_main_path": main.get(key, 0),
                 "launches_grid_path": grid_path.get(key, 0),
+                "launches_server_path": served.get(key, 0),
                 "max_abs_err": report[err], "ms": times[ms],
                 "plain_ms": times[plain], "bound_ms": bounds[bound_key][0],
                 "bound_by": bounds[bound_key][1], "library_ms": None, **extra}
@@ -1088,7 +1501,8 @@ def main() -> int:
           "library_ms = null: no single PyTorch call computes a month loop; "
           "launches = the main path (phase 5: launches_main_path) plus the "
           "analysis modes (8a-d) and bench.py's workload (8e: "
-          "launches_grid_path); *_all_on = the same under the all-on Statics")
+          "launches_grid_path) plus the server's routes (10a-d: "
+          "launches_server_path); *_all_on = the same under the all-on Statics")
     print(json.dumps({"kernels": kernels}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {

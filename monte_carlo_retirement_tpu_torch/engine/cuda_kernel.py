@@ -27,7 +27,8 @@ Beside each wrapper is its plain PyTorch version (:func:`probe_plain`,
 thin calls into ``engine/kernel.py``). A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
 raises. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain
-calls, so a run can show which path it took.
+calls, so a run can show which path it took; the counts stay exact when
+the server's engine threads launch at once.
 
 Compile-time structure is ``Statics`` (same fields and derivation as
 ``pallas_kernel.Statics``): the tax system and annual mark-to-market bill
@@ -42,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -50,9 +52,11 @@ import torch
 from ..constants import MONTHS_PER_YEAR
 from ..models.retirement import SimParams, prune_streams
 
-# Kernel launches / plain-version calls since the last reset.
+# Kernel launches / plain-version calls since the last reset, changed only
+# under _COUNT_LOCK (a dict increment is a read-modify-write).
 LAUNCHES: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0}
 PLAIN_CALLS: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0}
+_COUNT_LOCK = threading.Lock()
 
 # Rows of a probe or grid launch: groups of rows ride gridDim.y.
 MAX_ROWS = 65535
@@ -66,9 +70,15 @@ MONTHS_PER_ROW = 16  # months per draw tile for each row of the block ...
 MAX_TILE_MONTHS = 64  # ... up to this many
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for key in d:
-            d[key] = 0
+    with _COUNT_LOCK:
+        for d in (LAUNCHES, PLAIN_CALLS):
+            for key in d:
+                d[key] = 0
+
+
+def _count(counts: Dict[str, int], key: str) -> None:
+    with _COUNT_LOCK:
+        counts[key] += 1
 
 
 class F:
@@ -501,7 +511,7 @@ def probe(packed: Packed, statics: Statics, retirement_years: int,
         return probe_plain(packed, statics, retirement_years, n_paths)
     plan = tile_plan(packed.ip.shape[0], n_paths, statics, "probe")
     out = _launch_rows("mcrt_probe", packed, statics, n_paths, plan)
-    LAUNCHES["probe"] += 1
+    _count(LAUNCHES, "probe")
     return out
 
 
@@ -509,7 +519,7 @@ def probe_plain(packed: Packed, statics: Statics, retirement_years: int,
                 n_paths: int, shocks: Optional[torch.Tensor] = None) -> ProbeOut:
     """Plain PyTorch version of :func:`probe` (optionally on injected
     shocks, (T, P, n) in the plane layout of ``kernel.shock_planes``)."""
-    PLAIN_CALLS["probe"] += 1
+    _count(PLAIN_CALLS, "probe")
     return _plain_rows(packed, statics, retirement_years, n_paths, shocks)
 
 
@@ -527,7 +537,7 @@ def grid(packed: Packed, statics: Statics, retirement_years: int,
         return grid_plain(packed, statics, retirement_years, n_paths)
     plan = tile_plan(packed.ip.shape[0], n_paths, statics, "grid")
     out = _launch_rows("mcrt_grid", packed, statics, n_paths, plan)
-    LAUNCHES["grid"] += 1
+    _count(LAUNCHES, "grid")
     return out
 
 
@@ -535,7 +545,7 @@ def grid_plain(packed: Packed, statics: Statics, retirement_years: int,
                n_paths: int, shocks: Optional[torch.Tensor] = None) -> ProbeOut:
     """Plain PyTorch version of :func:`grid`: one vectorised loop over the
     K rows (optionally on injected shocks, (T, P, n))."""
-    PLAIN_CALLS["grid"] += 1
+    _count(PLAIN_CALLS, "grid")
     return _plain_rows(packed, statics, retirement_years, n_paths, shocks)
 
 
@@ -557,7 +567,7 @@ def simulate(packed: Packed, statics: Statics, retirement_years: int,
         return simulate_plain(packed, statics, retirement_years, n_paths)
     plan = tile_plan(1, n_paths, statics, "grid")
     out = _launch_rows("mcrt_grid", row, statics, n_paths, plan)
-    LAUNCHES["simulate"] += 1
+    _count(LAUNCHES, "simulate")
     return SimulateOut(out.success[0], out.final_balance[0])
 
 
@@ -565,7 +575,7 @@ def simulate_plain(packed: Packed, statics: Statics, retirement_years: int,
                    n_paths: int, shocks: Optional[torch.Tensor] = None
                    ) -> SimulateOut:
     """Plain PyTorch version of :func:`simulate`."""
-    PLAIN_CALLS["simulate"] += 1
+    _count(PLAIN_CALLS, "simulate")
     out = _plain_rows(_one_row(packed), statics, retirement_years, n_paths,
                       shocks)
     return SimulateOut(out.success[0], out.final_balance[0])
@@ -607,7 +617,7 @@ def simulate_full(packed: Packed, statics: Statics, retirement_years: int,
             wr.data_ptr(), _stream_ptr(dev),
         )
     _build.check(lib, rc, "full_kernel launch")
-    LAUNCHES["full"] += 1
+    _count(LAUNCHES, "full")
     out = dict(zip(VECTOR_FIELDS, vecs.unbind(0)))
     out.update(trajectory=traj.t(), price_levels=price.t(),
                withdrawal_rates=wr.t())
@@ -621,7 +631,7 @@ def simulate_full_plain(packed: Packed, statics: Statics,
     """Plain PyTorch version of :func:`simulate_full`."""
     from . import kernel
 
-    PLAIN_CALLS["full"] += 1
+    _count(PLAIN_CALLS, "full")
     return kernel.simulate(packed, statics, retirement_years, n_paths,
                            traj_len=traj_len, shocks=shocks)
 

@@ -5,9 +5,12 @@ Counterpart of the JAX package's ``engine/runner.py`` for one torch device.
 kernel (the plain version on the CPU); above ``max_probe_paths()`` it
 splits the paths into chunks of whole 4096-path blocks by global block
 offset, which draws exactly the shocks of one dispatch, and merges the
-survivor counts. ``run`` is the non-reduced full-statistics run: the full
-kernel, then the summary reductions on the same device, then one copy of
-the tables and per-path vectors to the host.
+survivor counts. ``run`` is the full-statistics run: the full kernel, then
+the summary reductions on the same device, then the tables and per-path
+vectors to the host; with ``reduced=True`` (the serving path) the per-path
+vectors stay on the device, the dashboard's histograms are reduced there
+too (``ops/stats.serving_bins``), and the tables and bins cross to the host
+in one copy.
 
 Stream seeds and sample rows follow the JAX engine's rules
 (``runner.py:463-470, 654-658``), so both packages pick the same seeds and
@@ -31,9 +34,10 @@ from ..constants import MONTHS_PER_YEAR, NUM_SAMPLE_PATHS
 from ..logging_utils import generate_seed_from_timestamp
 from ..models.retirement import SimParams
 from ..ops.shocks import BLOCK_PATHS
-from ..ops.stats import summarize
+from ..ops.stats import serving_bins, summarize
 from ..timing import expected_trajectory_length
 from .cuda_kernel import (
+    VECTOR_FIELDS,
     pack_params,
     probe as probe_kernel,
     require_device,
@@ -61,18 +65,39 @@ def _round_up(value: int, multiple: int) -> int:
 
 
 @dataclass
+class HostBins:
+    """Device-reduced dashboard aggregates on the host (``ops/stats.
+    ServingBins``): the payload's capped path needs nothing else."""
+
+    success_count: int
+    finals_min_successful: float
+    finals_max_successful: float
+    finals_hist_counts: np.ndarray  # (60,)
+    finals_median_successful: float
+    ruin_counts: np.ndarray  # (R+1,)
+    ruin_max: float
+    failure_count: int
+
+
+@dataclass
 class RunResult:
-    """Host-side (numpy) results of one full simulation batch."""
+    """Host-side (numpy) results of one full simulation batch.
+
+    In reduced mode (``Engine.run(reduced=True)``) the per-path arrays are
+    None and ``bins`` holds the dashboard's aggregates: only the tables and
+    the bins cross to the host.
+    """
 
     working_months: int
     num_simulations: int
-    success: np.ndarray
-    final_balance: np.ndarray
-    start_balance: np.ndarray
-    years_to_ruin: np.ndarray
-    first_year_gross: np.ndarray
-    first_year_real_gross: np.ndarray
-    inflation_at_retirement: np.ndarray
+    # Per-path arrays (None in reduced mode)
+    success: Optional[np.ndarray]
+    final_balance: Optional[np.ndarray]
+    start_balance: Optional[np.ndarray]
+    years_to_ruin: Optional[np.ndarray]
+    first_year_gross: Optional[np.ndarray]
+    first_year_real_gross: Optional[np.ndarray]
+    inflation_at_retirement: Optional[np.ndarray]
     success_probability: float
     median_start_balance: float
     median_final_successful: float
@@ -84,6 +109,27 @@ class RunResult:
     sample_real_trajectories: np.ndarray  # (k, L)
     wr_percentiles: np.ndarray  # (5, R)
     wr_observation_counts: np.ndarray  # (R,)
+    # Device-binned dashboard aggregates (reduced mode only)
+    bins: Optional[HostBins] = None
+
+
+def _fetch(groups):
+    """Every tensor of ``groups`` (NamedTuples of tensors) on the host in
+    one device-to-host copy: flattened into one float64 vector (float32
+    values and counts below 2**53 convert exactly), then split and cast
+    back to each tensor's dtype. Returns one dict per group."""
+    leaves = [t for g in groups for t in g]
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in leaves])
+    flat = flat.cpu().numpy()
+    out, at = [], 0
+    for group in groups:
+        fields = {}
+        for name, t in zip(group._fields, group):
+            dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+            fields[name] = flat[at:at + t.numel()].reshape(t.shape).astype(dtype)
+            at += t.numel()
+        out.append(fields)
+    return out
 
 
 class Engine:
@@ -201,9 +247,12 @@ class Engine:
     # full run with all statistics
     # ------------------------------------------------------------------
     def run(
-        self, working_months: int, num_simulations: int, stream: str = "final"
+        self, working_months: int, num_simulations: int, stream: str = "final",
+        reduced: bool = False,
     ) -> RunResult:
-        """One full-statistics batch."""
+        """One full-statistics batch. ``reduced=True`` keeps the per-path
+        vectors on the device and reduces the dashboard's histograms there
+        too; the host gets the tables and bins only."""
         working_months = int(working_months)
         if working_months < 0:
             raise ValueError(f"working_months must be >= 0, got {working_months}")
@@ -220,30 +269,28 @@ class Engine:
             self.retirement_years, n, traj_len,
         )
         summary = summarize(full, sample_idx)
-        host = {
-            name: full[name].cpu().numpy()
-            for name in (
-                "success", "final_balance", "start_balance", "years_to_ruin",
-                "first_year_gross", "first_year_real_gross",
-                "inflation_at_retirement",
-            )
-        }
-        s = {name: v.cpu().numpy() for name, v in summary._asdict().items()}
+        bins = None
+        if reduced:
+            s, b = _fetch([summary, serving_bins(full, self.retirement_years)])
+            bins = HostBins(**{
+                name: v if v.ndim else v.item() for name, v in b.items()
+            })
+            host = dict.fromkeys(VECTOR_FIELDS)
+        else:
+            host = {name: full[name].cpu().numpy() for name in VECTOR_FIELDS}
+            host["success"] = host["success"] > 0.5
+            s = {name: v.cpu().numpy() for name, v in summary._asdict().items()}
         log.info(
-            "phase=final_run device=%s paths=%d months=%d: %.3f s",
-            self.device, n, working_months, time.perf_counter() - t_start,
+            "phase=final_run device=%s paths=%d months=%d reduced=%s: %.3f s",
+            self.device, n, working_months, reduced,
+            time.perf_counter() - t_start,
         )
         L = expected_trajectory_length(working_months, self.retirement_years)
         return RunResult(
             working_months=working_months,
             num_simulations=n,
-            success=host["success"] > 0.5,
-            final_balance=host["final_balance"],
-            start_balance=host["start_balance"],
-            years_to_ruin=host["years_to_ruin"],
-            first_year_gross=host["first_year_gross"],
-            first_year_real_gross=host["first_year_real_gross"],
-            inflation_at_retirement=host["inflation_at_retirement"],
+            **host,
+            bins=bins,
             success_probability=float(s["success_probability"]),
             median_start_balance=float(s["median_start_balance"]),
             median_final_successful=float(s["median_final_successful"]),
@@ -256,3 +303,25 @@ class Engine:
             wr_percentiles=s["wr_percentiles"],
             wr_observation_counts=s["wr_observation_counts"],
         )
+
+    # ------------------------------------------------------------------
+    # single-path inspection (tests / debugging)
+    # ------------------------------------------------------------------
+    def run_path(self, working_months: int, stream: str = "final") -> dict:
+        """Simulate one path and return a reference-style result dict (the
+        JAX ``Engine.run_path``)."""
+        res = self.run(working_months, 1, stream=stream)
+        return {
+            "Start Balance": float(res.start_balance[0]),
+            "Final Balance": float(max(0.0, res.final_balance[0])),
+            "Success": bool(res.success[0]),
+            "YearsToRuin": float(res.years_to_ruin[0]),
+            "First Year Gross Withdrawal": float(res.first_year_gross[0]),
+            "First Year Real Gross Withdrawal": float(res.first_year_real_gross[0]),
+            "Trajectory": [float(v) for v in res.sample_trajectories[0]],
+            "RealTrajectory": [float(v) for v in res.sample_real_trajectories[0]],
+            "WithdrawalRateTrajectory": [
+                float(v) for v in res.wr_percentiles[2]  # median == the path
+            ],
+            "Inflation At Retirement": float(res.inflation_at_retirement[0]),
+        }

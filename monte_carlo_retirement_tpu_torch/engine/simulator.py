@@ -1,7 +1,8 @@
 """Reference-compatible simulator facade over the port's Engine.
 
 Same surface as the JAX package's ``engine/simulator.py``: seed-stream
-switching, the pandas 7-tuple of ``run_monte_carlo_simulations``,
+switching, the pandas 7-tuple of ``run_monte_carlo_simulations``, the
+device-reduced ``run_result_reduced`` the server's capped responses use,
 ``_success_probability`` and ``find_minimum_working_months`` (the search
 driver, probing 16 candidates per launch on the search stream).
 """
@@ -106,6 +107,17 @@ class RetirementMonteCarloSimulator:
             working_months, num_simulations, stream=self._stream_name
         )
 
+    def run_result_reduced(
+        self, working_months: int, num_simulations: int
+    ) -> RunResult:
+        """Device-reduced result: the per-path arrays stay on the device;
+        the host gets the percentile tables and the dashboard's pre-binned
+        aggregates (``RunResult.bins``)."""
+        return self.engine.run(
+            working_months, num_simulations, stream=self._stream_name,
+            reduced=True,
+        )
+
     @staticmethod
     def _package(res: RunResult):
         summary_df = pd.DataFrame(
@@ -134,6 +146,15 @@ class RetirementMonteCarloSimulator:
         ]
         counts = [int(v) for v in res.wr_observation_counts]
         return summary_df, traj_df, samples, wr_df, real_df, samples_real, counts
+
+    # -- single path (testing/inspection) -------------------------------
+    def _run_single_simulation_path(
+        self, working_months: int, path_seed: int = 0
+    ) -> Dict:
+        """One path as a reference-style dict. ``path_seed`` selects the path
+        row within the active stream (shock rows are independent)."""
+        del path_seed  # rows are interchangeable; kept for signature parity
+        return self.engine.run_path(working_months, stream=self._stream_name)
 
     # -- metrics ---------------------------------------------------------
     def _success_probability(self, summary_df: pd.DataFrame) -> float:

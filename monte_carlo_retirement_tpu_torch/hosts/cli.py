@@ -4,7 +4,8 @@ The main flow of the JAX package's ``hosts/cli.py`` (lines 390-543): load a
 scenario JSON, estimate the required working months on the search stream,
 run the final batch on the independent final stream, log the headline
 results and percentiles, and write
-``ret_proj_<scenario>_<timestamp>_{HIST,TRAJ}.png``.
+``ret_proj_<scenario>_<timestamp>_{HIST,TRAJ}.png`` (and, with --json-out,
+the /api/simulate response payload of that batch).
 
 Flags:
   --override N         skip the search and use N working months directly.
@@ -27,8 +28,10 @@ The analysis modes of the JAX CLI (its lines 107-387), one at a time:
                        success probability (or --opt-objective) by batched
                        grid refinement at the searched (or --override) month
                        count. --opt-points/--opt-rounds size the refinement.
-  --json-out PATH      write the mode's response payload (GridResponse,
-                       SensitivityResponse, Optimize(Joint)Response) here.
+  --json-out PATH      write the response payload here: the main run's
+                       SimulationResponse, or the analysis mode's
+                       (GridResponse, SensitivityResponse,
+                       Optimize(Joint)Response).
 
   python -m monte_carlo_retirement_tpu_torch.hosts.cli config.json
   python -m monte_carlo_retirement_tpu_torch.hosts.cli config.json --grid req.json
@@ -73,8 +76,9 @@ def _parse_args(argv) -> argparse.Namespace:
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     parser.add_argument("--json-out", default=None,
-                        help="analysis modes: write the response payload "
-                             "JSON here")
+                        help="write the response payload JSON here (the "
+                             "main run's /api/simulate payload, or the "
+                             "analysis mode's)")
     parser.add_argument("--grid", default=None, metavar="PATH",
                         help="scenario-grid request JSON; runs the grid "
                              "instead of search+final")
@@ -121,9 +125,6 @@ def _parse_args(argv) -> argparse.Namespace:
                             ("--opt-objective", args.opt_objective)):
             if value is not None:
                 parser.error(f"{flag} requires --optimize")
-    if args.json_out is not None and not modes:
-        # The main run's payload (hosts/payload.py) comes with the server.
-        parser.error("--json-out requires --grid, --sensitivity or --optimize")
     return args
 
 
@@ -435,6 +436,7 @@ def main(argv=None) -> None:
     log_input_parameters(config)
     simulator = RetirementMonteCarloSimulator(config, device=args.device)
 
+    search_curve = []
     if args.override is not None:
         required = args.override
         log.info("Using working-months override: %d (search skipped)", required)
@@ -442,7 +444,7 @@ def main(argv=None) -> None:
         log.info(
             "--- Estimating Required Working Months for '%s' ---", config.Nickname
         )
-        required, achieved, _curve = simulator.find_minimum_working_months(
+        required, achieved, search_curve = simulator.find_minimum_working_months(
             verbose=True
         )
         if required == -1:
@@ -511,6 +513,35 @@ def main(argv=None) -> None:
     plot_portfolio_trajectories(
         traj_pct_df, samples, required, config, f"{base}_TRAJ.png"
     )
+
+    if args.json_out:
+        from .payload import build_result
+
+        class _Precomputed:
+            """Serve the final batch already in hand to build_result: the
+            deterministic final stream would reproduce it bit for bit, so
+            running it again would only add cost. The cached batch is valid
+            only for the arguments it was computed with; a mismatch fails
+            loudly instead of embedding stale results."""
+
+            @staticmethod
+            def run_monte_carlo_simulations(working_months, num_simulations):
+                if (
+                    working_months != required
+                    or num_simulations != config.num_simulations_main
+                ):
+                    raise AssertionError(
+                        "precomputed batch mismatch: cached "
+                        f"({required}, {config.num_simulations_main}), "
+                        f"requested ({working_months}, {num_simulations})"
+                    )
+                return results
+
+        payload = build_result(config, _Precomputed(), required,
+                               search_curve=search_curve)
+        with open(args.json_out, "w", encoding="utf-8") as fh:
+            json.dump(payload, fh, indent=2, allow_nan=False)
+        log.info("Result payload written to %s", args.json_out)
     log.info("--- Main execution finished for '%s'. Log: %s ---",
              config.Nickname, log_filename)
 

@@ -67,3 +67,13 @@ def exact_quantiles(
     q = torch.as_tensor(qs, dtype=x.dtype, device=x.device)
     qmat = q[None, :].expand(x.shape[1], -1)
     return quantiles_percol(x, qmat, valid).t()
+
+
+def upper_median(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``sorted(x[valid])[count // 2]`` — the element the dashboard's
+    client-side histogram labels as the median (no interpolation); NaN when
+    no entry is valid. Stays on ``x``'s device (no host sync)."""
+    n_valid = valid.sum()
+    ordered = torch.sort(torch.where(valid, x, torch.inf)).values
+    pick = ordered[torch.clamp(n_valid // 2, max=x.shape[0] - 1)]
+    return torch.where(n_valid > 0, pick, torch.nan)

@@ -1,8 +1,10 @@
-"""Summary reductions over the path axis (the JAX ``ops/stats.py:43-142``).
+"""Summary reductions over the path axis (the JAX ``ops/stats.py``).
 
 Run on the device that holds the per-path tensors; only the small tables
 are brought to the host. Every percentile has exact np.percentile /
-np.nanpercentile semantics (``ops/quantiles.py``).
+np.nanpercentile semantics (``ops/quantiles.py``). ``serving_bins`` also
+reduces the dashboard's histogram payloads there, so a capped serving
+response needs no per-path array on the host.
 """
 
 from __future__ import annotations
@@ -17,9 +19,12 @@ from ..constants import (
     TRAJECTORY_PERCENTILES,
     WITHDRAWAL_RATE_PERCENTILES,
 )
-from .quantiles import exact_quantiles, quantiles_percol
+from .quantiles import exact_quantiles, quantiles_percol, upper_median
 
 EPS = SMALL_EPSILON
+
+# Bin count of the dashboard's successful-final-balance histogram.
+FINAL_HIST_BINS = 60
 
 
 class RunSummary(NamedTuple):
@@ -36,6 +41,21 @@ class RunSummary(NamedTuple):
     sample_real_trajectories: torch.Tensor  # (num_samples, L)
     wr_percentiles: torch.Tensor  # (5, R)
     wr_observation_counts: torch.Tensor  # (R,)
+
+
+class ServingBins(NamedTuple):
+    """Pre-binned dashboard aggregates, reduced on the device (the JAX
+    ``ServingBins``); the counts equal ``hosts/payload.py``'s numpy binning
+    of the same per-path values."""
+
+    success_count: torch.Tensor  # scalar int
+    finals_min_successful: torch.Tensor  # scalar (+inf if no successes)
+    finals_max_successful: torch.Tensor  # scalar (-inf if no successes)
+    finals_hist_counts: torch.Tensor  # (FINAL_HIST_BINS,) int
+    finals_median_successful: torch.Tensor  # scalar, sorted[n//2] (NaN if none)
+    ruin_counts: torch.Tensor  # (R+1,) int — integer-year bins incl. == R
+    ruin_max: torch.Tensor  # scalar (-inf if no failures)
+    failure_count: torch.Tensor  # scalar int — failed paths with finite ruin
 
 
 def vector_summary(success, final, start, first_year_real_gross):
@@ -97,4 +117,55 @@ def summarize(outs, sample_idx: torch.Tensor) -> RunSummary:
         sample_real_trajectories=samples_real,
         wr_percentiles=wr_pcts,
         wr_observation_counts=wr_counts,
+    )
+
+
+def _masked_bincount(idx: torch.Tensor, keep: torch.Tensor,
+                     nbins: int) -> torch.Tensor:
+    """Counts of ``idx`` (integral floats in [0, nbins)) where ``keep``;
+    the rest go to a spare last bin that is dropped."""
+    spare = torch.where(keep, idx, float(nbins)).to(torch.int64)
+    return torch.bincount(spare, minlength=nbins + 1)[:nbins]
+
+
+def serving_bins(outs, r_years: int | None = None) -> ServingBins:
+    """The dashboard's histogram payloads, reduced on the device that holds
+    ``outs`` (a mapping with the ``simulate_full`` keys).
+
+    Equal to ``hosts/payload.bin_successful_finals`` and
+    ``bin_years_to_ruin`` on the same values: the bin index is computed in
+    float64 as numpy computes it from the (float32) finals, with the same
+    width rule ((hi - lo) / 60, or 1.0 when that is 0), truncation and
+    last-bin clamp, so a value on a bin edge lands where numpy puts it.
+    The host only trims the ruin bins (trailing zeros, ceil(max) length).
+    """
+    success = outs["success"]
+    success = success > 0.5 if success.dtype != torch.bool else success
+    final = outs["final_balance"]
+
+    lo = torch.where(success, final, torch.inf).min()
+    hi = torch.where(success, final, -torch.inf).max()
+    lo64, hi64 = lo.double(), hi.double()
+    width0 = (hi64 - lo64) / FINAL_HIST_BINS
+    width = torch.where(width0 == 0.0, 1.0, width0)
+    idx = torch.clamp(torch.floor((final.double() - lo64) / width),
+                      max=FINAL_HIST_BINS - 1)
+    hist = _masked_bincount(idx, success, FINAL_HIST_BINS)
+
+    # R from the withdrawal-rate table width unless given; ruin years lie
+    # in [0, R], so R+1 integer bins cover every value incl. an exact == R.
+    if r_years is None:
+        r_years = outs["withdrawal_rates"].shape[1]
+    ytr = outs["years_to_ruin"]
+    failed = ~success & ~torch.isnan(ytr)
+    ridx = torch.clamp(torch.floor(ytr.double()), max=r_years)
+    return ServingBins(
+        success_count=success.sum(),
+        finals_min_successful=lo,
+        finals_max_successful=hi,
+        finals_hist_counts=hist,
+        finals_median_successful=upper_median(final, success),
+        ruin_counts=_masked_bincount(ridx, failed, r_years + 1),
+        ruin_max=torch.where(failed, ytr, -torch.inf).max(),
+        failure_count=failed.sum(),
     )

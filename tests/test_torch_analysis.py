@@ -161,7 +161,8 @@ def test_sensitivity_request_with_ad_raises():
     [
         (["--grid", "g.json", "--sensitivity"], "mutually exclusive"),
         (["--opt-points", "5"], "requires --optimize"),
-        (["--json-out", "x.json"], "--json-out requires"),
+        (["--sensitivity", "--optimize", "allocation_inv1_pct"],
+         "mutually exclusive"),
         (["--override", "-1"], "nonnegative"),
     ],
 )

@@ -132,7 +132,8 @@ def test_port_never_imports_jax():
         "from monte_carlo_retirement_tpu_torch.engine.simulator import "
         "RetirementMonteCarloSimulator\n"
         "from monte_carlo_retirement_tpu_torch.hosts import (\n"
-        "    cli, grid, optimize, plotting, sensitivity)\n"
+        "    cli, grid, openapi, optimize, payload, plotting, schemas,\n"
+        "    sensitivity, server)\n"
         "from monte_carlo_retirement_tpu_torch.engine import (\n"
         "    optimize as opt, scenario_batch, sensitivity as sens)\n"
         f"cfg = Config(**{TINY!r})\n"
@@ -140,6 +141,9 @@ def test_port_never_imports_jax():
         "m, p, _ = sim.find_minimum_working_months(verbose=False)\n"
         "sim.use_final_seeds()\n"
         "sim.run_monte_carlo_simulations(max(m, 0), 256)\n"
+        "payload.build_result(cfg, sim, max(m, 0), include_raw=False)\n"
+        "openapi.build_spec()\n"
+        "server.create_app(device='cpu')\n"
         "scenario_batch.run_scenario_grid([cfg, cfg], [0, 6], 128, device='cpu')\n"
         "sens.sensitivity_fd(cfg, 6, num_paths=64, params=['monthly_expenses'],"
         " device='cpu')\n"

@@ -19,6 +19,7 @@ import pydantic  # noqa: E402
 
 import monte_carlo_retirement_tpu.config as jax_config  # noqa: E402
 import monte_carlo_retirement_tpu.constants as jax_constants  # noqa: E402
+import monte_carlo_retirement_tpu.hosts.schemas as jax_schemas  # noqa: E402
 import monte_carlo_retirement_tpu.timing as jax_timing  # noqa: E402
 from monte_carlo_retirement_tpu.engine import pallas_kernel as pk  # noqa: E402
 from monte_carlo_retirement_tpu.models.retirement import (  # noqa: E402
@@ -27,6 +28,9 @@ from monte_carlo_retirement_tpu.models.retirement import (  # noqa: E402
 from monte_carlo_retirement_tpu_torch import config as port_config  # noqa: E402
 from monte_carlo_retirement_tpu_torch import constants as port_constants  # noqa: E402
 from monte_carlo_retirement_tpu_torch import timing as port_timing  # noqa: E402
+from monte_carlo_retirement_tpu_torch.hosts import (  # noqa: E402
+    schemas as port_schemas,
+)
 from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck  # noqa: E402
 from monte_carlo_retirement_tpu_torch.models.retirement import SimParams  # noqa: E402
 from tests.conftest import base_config_dict  # noqa: E402
@@ -145,6 +149,18 @@ def test_config_copy_equals_original():
     good = base_config_dict(scenario="aliased")
     assert (port_config.Config(**good).model_dump()
             == jax_config.Config(**good).model_dump())
+
+
+def test_schemas_copy_equals_original():
+    def models(mod):
+        return {name: obj for name, obj in vars(mod).items()
+                if isinstance(obj, type) and issubclass(obj, pydantic.BaseModel)
+                and obj.__module__ == mod.__name__}
+
+    port, ref = models(port_schemas), models(jax_schemas)
+    assert list(port) == list(ref) and "SimulationResponse" in port
+    for name in ref:
+        assert port[name].model_json_schema() == ref[name].model_json_schema(), name
 
 
 def test_constants_copy_equals_original():
