@@ -64,6 +64,11 @@ result):
      guardrail and the annual tax rate (d success < 0 for the first two
      and the tax rate); then bench.py's workload through simulate (one
      launch, held to simulate_plain and to the probe kernel's flags at W=0);
+     then the AD cross-check (sensitivity_ad: torch.func.jacfwd through the
+     plain loop, one counted AD pass) at 1,048,576 paths, config.json,
+     W=231, the 8 default parameters: every gradient finite, d/d expenses
+     < 0 and d/d equity mean > 0, both within 5% of a CRN central
+     difference of the mean final balance on the grid kernel, its wall;
   9. the extensions on the card, each alone and all together (config.json
      plus EXTENSIONS below, R = 20): probe_kernel, grid_kernel (3 ragged
      rows) and full_kernel against their plain versions at 65,536 paths with the
@@ -86,17 +91,34 @@ result):
      result equal to (a)'s; (c) four seeds at once, each answer equal to
      the same request alone, the concurrent launch counts exact; (d)
      /api/grid (16 variants x 1M), /api/sensitivity and /api/optimize
-     (65,536 paths) valid and on the grid kernel, include_ad a JSON 400
-     naming ROADMAP A9; (e) times: warm /api/simulate wall (min and median
-     of 5) split into search, final run, payload assembly and JSON
-     encoding, the response's bytes, the same with include_raw_paths, and
-     the first request of a fresh server process with an empty kernel
-     build directory, without and with its warmup.
+     (65,536 paths) valid and on the grid kernel, /api/sensitivity with
+     include_ad (ad_num_paths 65,536) 200 with an AD slope on every row,
+     its FD rows on the grid kernel and one AD pass; (e) times: warm
+     /api/simulate wall (min and median of 5) split into search, final
+     run, payload assembly and JSON encoding, the response's bytes, the
+     same with include_raw_paths, and the first request of a fresh server
+     process with an empty kernel build directory, without and with its
+     warmup;
+ 11. the chunked full-statistics run (Engine.run above
+     MCRT_MAX_DEVICE_PATHS): first the card memory per path of an
+     unchunked run at phase 5b's month and at the longest horizon (4M
+     paths, torch.cuda.max_memory_allocated) and the default budget
+     against it (four concurrent runs at the budget fit the card); (a)
+     phase 5b's config and month at 4,195,304 paths, unchunked and in 5
+     chunks of 1,048,576, raw and reduced: every RunResult and HostBins
+     field equal (values; NaN equal); (b) the same under ALL_ON at phase
+     5c's month, 1,001,000 paths in 4 chunks of 63 blocks (an odd count:
+     antithetic pairs straddle the chunk boundaries); (c) 48 x 2**20 paths
+     at the default budget, raw (more than an unchunked run fits on the
+     card): its first 1,048,576 entries of every per-path vector bit-equal
+     to a 1M unchunked run's, success within 4 sigma of it, peak memory
+     beside the card's, wall time split into simulation and count passes.
+     Each chunked run: chunks, band passes and full-kernel launches.
 
 The kernels' line comes before the last two: {"kernels": [...]}, one row
 per kernel with its launches on the main path (phase 5), the grid path
-(phase 8) and the server's routes (phase 10a-d), its time, bound and plain
-version's time; then the card's
+(phase 8), the server's routes (phase 10a-d) and the chunked runs (phase
+11), its time, bound and plain version's time; then the card's
 name and power limit on their own line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -174,6 +196,12 @@ ALL_ON = dict(
     antithetic=True, allocation_inv1_final_pct=0.4,
     spending_guardrails=GUARDRAILS, market_crashes=CRASHES, longevity=LONGEVITY,
 )
+AD_PATHS = 2**20  # /api/sensitivity's largest ad_num_paths
+N_11A = 4 * 2**20 + 1_000  # the last chunk of 2**20 holds a partial block
+N_11B = N_FULL + 1_000
+BLOCKS_11B = 63  # 4 chunks of an odd number of 4096-path blocks
+N_11C = 48 * 2**20
+UNCHUNKED = 10**12  # a budget no run here reaches
 ALL_ON_SENSITIVITY = ("market_crashes.frequency_per_year", "longevity.mode_age",
                       "spending_guardrails.upper_wr_pct",
                       "inv1_annual_tax_on_gains_rate")
@@ -985,6 +1013,43 @@ def phase_modes(report):
     print("[8e]   simulate's flags equal the probe kernel's at W=0")
     report["sim_err"] = err
 
+    # The AD cross-check at the route's largest ad_num_paths, held to a CRN
+    # central difference of the same metric on the grid kernel.
+    from monte_carlo_retirement_tpu_torch.config import Config
+    from monte_carlo_retirement_tpu_torch.engine.sensitivity import (
+        sensitivity_ad,
+        sensitivity_fd,
+    )
+
+    cfg = Config(**raw)
+    ck.reset_counts()
+    t0 = time.perf_counter()
+    ad = sensitivity_ad(cfg, GRID_W, num_paths=AD_PATHS, seed=SEED,
+                        device="cuda")
+    torch.cuda.synchronize()
+    t_ad = time.perf_counter() - t0
+    ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+    if plain.pop("ad") != 1 or any(plain.values()) or any(ran.values()):
+        raise AssertionError(f"[8f] AD pass: launches {ran}, plain {plain}")
+    fd, ran = counted("8f", lambda: sensitivity_fd(
+        cfg, GRID_W, num_paths=AD_PATHS, seed=SEED, rel_step=0.002,
+        abs_step=0.0005, device="cuda"))
+    fd = {r.param: r.d_mean_final for r in fd}
+    grads = ad["d_mean_final"]
+    print(f"[8f] sensitivity_ad (torch.func.jacfwd through the plain loop, one "
+          f"AD pass) at {AD_PATHS:,} paths, W={GRID_W}: wall {t_ad:.2f} s; mean "
+          f"final balance {ad['mean_final_balance']:.2f}")
+    for name, g in grads.items():
+        print(f"[8f]   {name:<32} AD {g:>16.6g}  CRN FD {fd[name]:>16.6g}  "
+              f"AD/FD {g / fd[name]:.6f}")
+    close = all(abs(grads[p] / fd[p] - 1.0) <= 0.05
+                for p in ("monthly_expenses", "inv1_returns_mean"))
+    if not (all(math.isfinite(g) for g in grads.values()) and close
+            and grads["monthly_expenses"] < 0 < grads["inv1_returns_mean"]):
+        raise AssertionError("[8f] AD gradients are not finite, signed or "
+                             "within 5% of the finite difference")
+    report["ad_wall_s"] = t_ad
+
 
 def phase_extensions(report):
     import numpy as np
@@ -1203,11 +1268,12 @@ def phase_server(report):
           f"aiohttp.test_utils.TestServer on 127.0.0.1, requests from its "
           f"TestClient")
 
-    def counted(tag, need):
-        """The launches since the last reset: no plain call, each kernel
-        of ``need`` launched; they count as the server path's."""
+    def counted(tag, need, ad=0):
+        """The launches since the last reset: no plain call but ``ad`` AD
+        passes, each kernel of ``need`` launched; they count as the server
+        path's."""
         ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
-        if any(plain.values()):
+        if plain.pop("ad") != ad or any(plain.values()):
             raise AssertionError(f"[{tag}] plain versions ran: {plain}")
         if not all(ran[k] for k in need):
             raise AssertionError(f"[{tag}] a kernel was not launched: {ran}")
@@ -1314,12 +1380,20 @@ def phase_server(report):
                   f"launches {ran}")
         if ran["grid"] != 2:
             raise AssertionError(f"[10d] optimize launched {ran}")
-        resp = await client.post("/api/sensitivity", json={
-            **checks[1][2], "include_ad": True})
-        detail = (await resp.json())["detail"]
-        if resp.status != 400 or "A9" not in detail:
-            raise AssertionError(f"[10d] include_ad: {resp.status} {detail}")
-        print("[10d] include_ad: 400, JSON detail naming ROADMAP A9")
+        ck.reset_counts()
+        blob, wall = await post(client, "/api/sensitivity", {
+            **checks[1][2], "include_ad": True, "ad_num_paths": N_CHECK})
+        ran = counted("10d", ("grid",), ad=1)
+        sens = json.loads(blob)
+        SensitivityResponse.model_validate(sens)
+        slopes = [r.get("ad_d_mean_final") for r in sens["rows"]]
+        if not (all(v is not None and math.isfinite(v) for v in slopes)
+                and sens.get("mean_final_balance_ad") is not None):
+            raise AssertionError(f"[10d] include_ad answered {sens}")
+        print(f"[10d] /api/sensitivity include_ad, ad_num_paths {N_CHECK:,}: "
+              f"200, ad_d_mean_final on all {len(slopes)} rows, "
+              f"mean_final_balance_ad {sens['mean_final_balance_ad']}, "
+              f"{wall:.3f} s; launches {ran}, one AD pass")
 
         # 10e: warm times over HTTP, capped and raw.
         walls = []
@@ -1439,6 +1513,181 @@ def phase_server(report):
     report["server_times"] = times
 
 
+class _ChunkLog(logging.Handler):
+    """Keeps the statistics of each chunked run (the ``chunked`` attribute
+    of the engine's phase=final_run record)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.stats = []
+
+    def emit(self, record):
+        if hasattr(record, "chunked"):
+            self.stats.append(record.chunked)
+
+
+def _differing_fields(got, want):
+    """The RunResult and HostBins fields of two runs that differ as values
+    (-0.0 == +0.0: a sort and a compare-count may pick different zeros;
+    NaN == NaN)."""
+    import dataclasses
+
+    import numpy as np
+
+    bad = []
+    for field in dataclasses.fields(want):
+        a, b = getattr(got, field.name), getattr(want, field.name)
+        if field.name == "bins" and b is not None:
+            bad += [f"bins.{f.name}" for f in dataclasses.fields(b)
+                    if not np.array_equal(np.asarray(getattr(a, f.name)),
+                                          np.asarray(getattr(b, f.name)),
+                                          equal_nan=True)]
+        elif (a is None) != (b is None) or (b is not None and not np.array_equal(
+                np.asarray(a), np.asarray(b), equal_nan=True)):
+            bad.append(field.name)
+    return bad
+
+
+def phase_chunked(report):
+    """11: the chunked full-statistics run on the card."""
+    import numpy as np
+    import torch
+    from monte_carlo_retirement_tpu_torch.constants import (
+        MAX_SEARCH_YEARS,
+        MONTHS_PER_YEAR,
+    )
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine import runner
+    from monte_carlo_retirement_tpu_torch.engine.runner import Engine
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    months = report["5b"]["months"]
+    launches = report["launches"]
+    chunked = report["launches_chunked"] = {"full": 0}
+    chunk_log = _ChunkLog()
+    eng_log = logging.getLogger("mcrt.engine")
+    old_level, old_env = eng_log.level, os.environ.get("MCRT_MAX_DEVICE_PATHS")
+
+    def run(eng, w, n, budget, reduced=False):
+        if budget is None:
+            os.environ.pop("MCRT_MAX_DEVICE_PATHS", None)
+        else:
+            os.environ["MCRT_MAX_DEVICE_PATHS"] = str(budget)
+        return eng.run(w, n, reduced=reduced)
+
+    def run_chunked(tag, eng, w, n, budget, reduced=False):
+        """One chunked run, its launches counted as the chunked path's."""
+        ck.reset_counts()
+        res = run(eng, w, n, budget, reduced)
+        ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+        stats = chunk_log.stats[-1] if chunk_log.stats else None
+        chunk_log.stats.clear()
+        if stats is None or any(plain.values()) or (
+                ran["full"] != stats["full_launches"]):
+            raise AssertionError(f"[{tag}] not one chunked run on the full "
+                                 f"kernel: {stats}, launches {ran}, plain {plain}")
+        launches["full"] += ran["full"]
+        chunked["full"] += ran["full"]
+        return res, stats
+
+    def line(stats):
+        return (f"{stats['chunks']} chunks, {stats['band_passes']} band passes, "
+                f"{stats['full_launches']} full-kernel launches, wall "
+                f"{stats['wall_s']:.3f} s (simulation {stats['simulation_s']:.3f} "
+                f"s, counts and merges {stats['count_s']:.3f} s)")
+
+    eng_log.addHandler(chunk_log)
+    eng_log.setLevel(logging.INFO)
+    try:
+        eng = Engine(_config(), device="cuda")
+        # Card memory per path of an unchunked run, and the default budget.
+        bpp = {}
+        n_mem = 4 * 2**20
+        for label, w in (("5b month", months),
+                         ("longest horizon", MAX_SEARCH_YEARS * MONTHS_PER_YEAR)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run(eng, w, n_mem, UNCHUNKED)
+            torch.cuda.synchronize()
+            bpp[label] = (torch.cuda.max_memory_allocated() - base) / n_mem
+            print(f"[11] unchunked run at W={w} (L={1 + eng._t_scan(w) // 12}, "
+                  f"R={eng.retirement_years}), {n_mem:,} paths: peak "
+                  f"{bpp[label] * n_mem:,.0f} B above the baseline, "
+                  f"{bpp[label]:.1f} B per path")
+        os.environ.pop("MCRT_MAX_DEVICE_PATHS", None)
+        budget = runner.max_device_paths()
+        four = 4 * budget * bpp["longest horizon"]
+        print(f"[11] default budget {budget:,} paths: 4 concurrent runs at the "
+              f"longest horizon hold {four:,.0f} B of the card's {total:,} B "
+              f"({four / total:.1%}); the 1M main path stays unchunked")
+        if not (N_FULL <= budget and four < total):
+            raise AssertionError("[11] the default budget does not fit the card")
+        report["bytes_per_path"] = bpp
+        report["budget"] = budget
+
+        # 11a: unchunked vs 5 chunks, raw and reduced.
+        for reduced in (False, True):
+            want = run(eng, months, N_11A, UNCHUNKED, reduced)
+            got, stats = run_chunked("11a", eng, months, N_11A, 2**20, reduced)
+            bad = _differing_fields(got, want)
+            print(f"[11a] {N_11A:,} paths at W={months}, "
+                  f"{'reduced' if reduced else 'raw'}: {line(stats)}; fields "
+                  f"differing from the unchunked run: {bad or 'none'}")
+            if bad or stats["chunks"] != 5:
+                raise AssertionError("[11a] the chunked run differs")
+
+        # 11b: every extension on, antithetic pairs across chunk boundaries.
+        eng_on = Engine(_config(**dict(ALL_ON)), device="cuda")
+        w_on = report["all_on_months"]
+        want = run(eng_on, w_on, N_11B, UNCHUNKED)
+        got, stats = run_chunked("11b", eng_on, w_on, N_11B, BLOCKS_11B * 4096)
+        bad = _differing_fields(got, want)
+        print(f"[11b] all extensions on, {N_11B:,} paths at W={w_on}: "
+              f"{line(stats)}; fields differing: {bad or 'none'}")
+        if bad or stats["chunks"] != 4:
+            raise AssertionError("[11b] the all-on chunked run differs")
+
+        # 11c: beyond the card, at the default budget.
+        need = N_11C * bpp["5b month"]
+        print(f"[11c] {N_11C:,} paths unchunked would need ~{need:,.0f} B "
+              f"(> the card's {total:,} B: {need > total})")
+        if need <= total:
+            raise AssertionError("[11c] the run would fit unchunked")
+        ref = run(eng, months, 2**20, UNCHUNKED)
+        del want, got
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        big, stats = run_chunked("11c", eng, months, N_11C, None)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        same = [name for name in ck.VECTOR_FIELDS
+                if getattr(big, name)[:2**20].tobytes() == getattr(ref, name).tobytes()]
+        p1, pn = ref.success_probability, big.success_probability
+        sigma = math.sqrt(max(p1 * (100.0 - p1), 1e-9) / 2**20)
+        print(f"[11c] {N_11C:,} paths at W={months}, raw, default budget: "
+              f"{line(stats)}; Engine.run wall {wall:.3f} s; peak "
+              f"{peak:,} B allocated of the card's {total:,} B")
+        print(f"[11c]   first {2**20:,} entries bit-equal to the 1M unchunked "
+              f"run in {len(same)}/{len(ck.VECTOR_FIELDS)} vectors; success "
+              f"{pn:.4f}% vs {p1:.4f}% (4 sigma = {4 * sigma:.4f} pts)")
+        if not (len(same) == len(ck.VECTOR_FIELDS) and abs(pn - p1) <= 4 * sigma
+                and np.isfinite(big.trajectory_percentiles).all()
+                and big.final_balance.shape == (N_11C,)):
+            raise AssertionError("[11c] the run beyond the card is wrong")
+        report["chunked_11c"] = dict(stats, engine_wall_s=wall, peak_bytes=peak)
+    finally:
+        eng_log.removeHandler(chunk_log)
+        eng_log.setLevel(old_level)
+        if old_env is None:
+            os.environ.pop("MCRT_MAX_DEVICE_PATHS", None)
+        else:
+            os.environ["MCRT_MAX_DEVICE_PATHS"] = old_env
+
+
 def main() -> int:
     import torch
 
@@ -1457,7 +1706,7 @@ def main() -> int:
     report = {}
     for phase in (phase_build, phase_normals, phase_probe, phase_full,
                   phase_main_path, phase_timings, phase_grid, phase_modes,
-                  phase_extensions, phase_server):
+                  phase_extensions, phase_server, phase_chunked):
         t0 = time.perf_counter()
         phase(report)
         print(f"--- {phase.__name__}: {time.perf_counter() - t0:.1f} s wall")
@@ -1467,7 +1716,7 @@ def main() -> int:
     times, launches = report["times"], report["launches"]
     main, grid_path, bounds = (report["launches_main"], report["launches_grid"],
                                report["bounds"])
-    served = report["launches_server"]
+    served, chunked = report["launches_server"], report["launches_chunked"]
     pallas = "monte_carlo_retirement_tpu/engine/pallas_kernel.py"
 
     def row(name, key, replaces, err, ms, plain, bound_key, **extra):
@@ -1476,6 +1725,7 @@ def main() -> int:
                 "launches_main_path": main.get(key, 0),
                 "launches_grid_path": grid_path.get(key, 0),
                 "launches_server_path": served.get(key, 0),
+                "launches_chunked_path": chunked.get(key, 0),
                 "max_abs_err": report[err], "ms": times[ms],
                 "plain_ms": times[plain], "bound_ms": bounds[bound_key][0],
                 "bound_by": bounds[bound_key][1], "library_ms": None, **extra}
@@ -1500,9 +1750,10 @@ def main() -> int:
           "launch's work on this card (engine/bound.py, phase 6's shapes); "
           "library_ms = null: no single PyTorch call computes a month loop; "
           "launches = the main path (phase 5: launches_main_path) plus the "
-          "analysis modes (8a-d) and bench.py's workload (8e: "
+          "analysis modes (8a-d, f) and bench.py's workload (8e: "
           "launches_grid_path) plus the server's routes (10a-d: "
-          "launches_server_path); *_all_on = the same under the all-on Statics")
+          "launches_server_path) plus the chunked runs (11a-c: "
+          "launches_chunked_path); *_all_on = the same under the all-on Statics")
     print(json.dumps({"kernels": kernels}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {

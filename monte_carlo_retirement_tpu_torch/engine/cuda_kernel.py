@@ -53,9 +53,12 @@ from ..constants import MONTHS_PER_YEAR
 from ..models.retirement import SimParams, prune_streams
 
 # Kernel launches / plain-version calls since the last reset, changed only
-# under _COUNT_LOCK (a dict increment is a read-modify-write).
+# under _COUNT_LOCK (a dict increment is a read-modify-write). "ad" counts
+# the AD passes of the sensitivity (engine/sensitivity.sensitivity_ad),
+# which run the plain loop by design.
 LAUNCHES: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0}
-PLAIN_CALLS: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0}
+PLAIN_CALLS: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0,
+                               "ad": 0}
 _COUNT_LOCK = threading.Lock()
 
 # Rows of a probe or grid launch: groups of rows ride gridDim.y.
@@ -166,8 +169,9 @@ def _fparams(params: SimParams, dtype) -> torch.Tensor:
     """``pallas_kernel._pack_params``' float block plus ``_stream_inputs``,
     every derived value computed in ``dtype`` like the JAX packing, on the
     parameters' own device. Leaves may carry a leading scenario axis: the
-    block is then (K, F.NUM + 5*S)."""
-    p = lambda t: t.detach().to(dtype=dtype)
+    block is then (K, F.NUM + 5*S). Differentiable: leaves that carry a
+    forward-mode tangent (``engine/sensitivity.sensitivity_ad``) keep it."""
+    p = lambda t: t.to(dtype=dtype)
     sq = math.sqrt(MONTHS_PER_YEAR)
     vals = [
         p(params.mu1) / MONTHS_PER_YEAR,

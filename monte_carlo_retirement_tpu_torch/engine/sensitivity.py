@@ -1,35 +1,57 @@
-"""Parameter sensitivity analysis on the port: finite differences over a
-common-random-numbers scenario grid.
+"""Parameter sensitivity analysis on the port, two ways (the JAX
+package's ``engine/sensitivity.py``, with the port's imports):
 
-The finite-difference half of the JAX package's ``engine/sensitivity.py``
-(lines 49-347), with the port's imports. Every perturbed scenario (theta
-+/- h for each parameter) is one row of a scenario grid
-(``engine/scenario_batch.py``), so all probes share their shocks: the +/-
-difference cancels the Monte Carlo noise common to both rows, and only
-paths whose outcome actually flips contribute. Cost: 2K+1 grid rows.
+* **Finite differences with common random numbers** (``sensitivity_fd``,
+  JAX lines 49-347). Every perturbed scenario (theta +/- h for each
+  parameter) is one row of a scenario grid (``engine/scenario_batch.py``),
+  so all probes share their shocks: the +/- difference cancels the Monte
+  Carlo noise common to both rows, and only paths whose outcome actually
+  flips contribute. Cost: 2K+1 grid rows on the grid kernel.
 
-``sensitivity_ad`` (``jax.jacfwd`` through the scan kernel) is not here:
-its counterpart, ``torch.func.jacfwd`` through the plain loop, is ROADMAP.md
-item A9.
+* **Forward-mode AD** (``sensitivity_ad``, JAX lines 354-551): d mean final
+  balance / d theta by ``torch.func.jacfwd`` through the plain month loop
+  (``engine/kernel.simulate``) on the engine's device, every parameter's
+  tangent in one pass. The JAX package differentiates its XLA scan, not a
+  Pallas kernel, so the plain loop is the faithful counterpart. The paths
+  are the grid's (the same Philox stream seed), so AD and the CRN finite
+  difference see the same shocks. Success is a step function (AD sees
+  derivative 0), so AD covers the smooth mean-final-balance metric as an
+  independent cross-check of the FD slopes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 from contextlib import contextmanager
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..config import Config
-from .scenario_batch import ScenarioBatchResult, run_scenario_grid
+from ..models.retirement import SimParams
+from . import kernel
+from .cuda_kernel import (
+    PLAIN_CALLS,
+    _count,
+    pack_params,
+    require_device,
+    statics_from_config,
+)
+from .scenario_batch import (
+    ScenarioBatchResult,
+    _grid_stream_seed,
+    run_scenario_grid,
+)
 
 __all__ = [
     "SENSITIVITY_PARAMS",
     "DEFAULT_PARAMS",
     "SensitivityRow",
     "sensitivity_fd",
+    "sensitivity_ad",
 ]
 
 
@@ -330,3 +352,172 @@ def sensitivity_fd(
             )
         )
     return rows
+
+
+# ----------------------------------------------------------------------
+# Forward-mode AD through the plain month loop
+# ----------------------------------------------------------------------
+
+def _log_params_ad(mean, vol):
+    """Differentiable arithmetic->lognormal conversion (models/retirement.py
+    arithmetic_to_log_params in torch, with a gradient-stable sqrt at vol=0:
+    sigma = (vol/gross) * sqrt(log1p(r)/r), and log1p(r)/r -> 1 as r -> 0)."""
+    gross = 1.0 + mean
+    r = (vol / gross) ** 2
+    ratio = torch.where(r < 1e-12, 1.0 - 0.5 * r,
+                        torch.log1p(r) / torch.clamp(r, min=1e-30))
+    sigma = (vol / gross) * torch.sqrt(ratio)
+    mu = torch.log(gross) - 0.5 * sigma * sigma
+    return mu, sigma
+
+
+# theta entries that flow through the lognormal conversion, as
+# (mean_name, vol_name) -> (mu_leaf, sigma_leaf)
+_AD_LOGNORMAL = {
+    ("inv1_returns_mean", "inv1_returns_volatility"): ("mu1", "sigma1"),
+    ("inflation_rate_mean", "inflation_rate_volatility"): ("mu_inf", "sigma_inf"),
+    (
+        "inv2_premium_over_inflation_mean",
+        "inv2_premium_over_inflation_volatility",
+    ): ("mu_prem", "sigma_prem"),
+}
+
+# Expense-ratio fields fold into the drift of their lognormal group
+# (SimParams.from_config: mu += log1p(-ratio)); the inflation group has none.
+_AD_FEES = {
+    ("inv1_returns_mean", "inv1_returns_volatility"):
+        "inv1_expense_ratio_annual",
+    (
+        "inv2_premium_over_inflation_mean",
+        "inv2_premium_over_inflation_volatility",
+    ): "inv2_expense_ratio_annual",
+}
+
+# Direct scalar mappings config-field -> SimParams leaf.
+_AD_DIRECT = {
+    "initial_balance": "initial_balance",
+    "monthly_contribution": "monthly_contribution",
+    "contribution_growth_rate_annual": "contribution_growth",
+    "monthly_expenses": "monthly_expenses",
+    "allocation_inv1_pct": "alloc1",
+    "allocation_inv1_final_pct": "alloc1_final",
+    "equity_inflation_correlation": "rho",
+    "inv1_annual_tax_on_gains_rate": "ann_tax1",
+    "inv2_annual_tax_on_gains_rate": "ann_tax2",
+    "inv1_realized_gains_tax_rate": "real_tax1",
+    "inv2_realized_gains_tax_rate": "real_tax2",
+}
+
+
+def _params_from_theta(config: Config, names: Sequence[str], theta,
+                       device="cpu"):
+    """Differentiable SimParams (float64 leaves on ``device``) as a function
+    of the theta vector (float64, one entry per name)."""
+    base = SimParams.from_config(config, dtype=torch.float64, device=device)
+    dump = config.model_dump()
+    # Optional fields (e.g. the glide endpoint) may be None on the base,
+    # and dotted paths are FD-only (refused by sensitivity_ad); the
+    # lognormal recombination below never reads either, so both are simply
+    # omitted here.
+    values = {
+        n: float(get_field(dump, n))
+        for n in SENSITIVITY_PARAMS
+        if "." not in n and get_field(dump, n) is not None
+    }
+    for i, n in enumerate(names):
+        values[n] = theta[i]
+
+    def leaf(v):
+        if isinstance(v, torch.Tensor):
+            return v
+        return torch.tensor(v, dtype=torch.float64, device=device)
+
+    updates = {}
+    for n in names:
+        if n in _AD_DIRECT:
+            updates[_AD_DIRECT[n]] = leaf(values[n])
+    # Without a configured glide, alloc1_final mirrors alloc1 and the
+    # RETIREMENT phase reads alloc1_final — so the theta perturbation must
+    # move BOTH leaves or the decumulation phase is insensitive to the
+    # allocation. With a glide set, alloc1_final is its own parameter and
+    # stays at its configured value.
+    if (
+        "allocation_inv1_pct" in names
+        and getattr(config, "allocation_inv1_final_pct", None) is None
+    ):
+        updates["alloc1_final"] = updates["alloc1"]
+    for (mean_n, vol_n), (mu_leaf, sigma_leaf) in _AD_LOGNORMAL.items():
+        fee_n = _AD_FEES.get((mean_n, vol_n))
+        if (
+            mean_n in names or vol_n in names
+            or (fee_n is not None and fee_n in names)
+        ):
+            mu, sigma = _log_params_ad(leaf(values[mean_n]), leaf(values[vol_n]))
+            if fee_n is not None:
+                # Fold the expense-ratio drag as from_config does, at the
+                # theta value (differentiable when the fee IS theta).
+                mu = mu + torch.log1p(-leaf(values.get(fee_n, 0.0)))
+            updates[mu_leaf] = mu
+            updates[sigma_leaf] = sigma
+    return dataclasses.replace(base, **updates)
+
+
+def sensitivity_ad(
+    config: Config,
+    working_months: int,
+    num_paths: int = 32_768,
+    seed: int = 0,
+    params: Optional[Sequence[str]] = None,
+    device="cuda",
+) -> Dict[str, float]:
+    """d mean-final-balance / d theta by ``torch.func.jacfwd`` through the
+    plain month loop on ``device`` (float32 on the card, float64 on the
+    CPU), every parameter in one pass. Returns ``{"mean_final_balance":
+    value, "d_mean_final": {name: grad}}``.
+
+    Forward mode: one tangent per parameter, no reverse-pass residuals
+    through the month loop. Ruin clamps and capacity switches make the
+    metric piecewise smooth; AD returns the a.e. derivative (equal to the
+    CRN finite difference up to the O(h) mass of switching paths).
+    """
+    names = validate_params(params)
+    dotted = [n for n in names if "." in n]
+    if dotted:
+        raise ValueError(
+            f"Parameters {dotted} are FD-only (they enter the kernel "
+            "through comparisons/clamps); drop include_ad or the dotted "
+            "parameters."
+        )
+    dump = config.model_dump()
+    unset = [n for n in names if dump[n] is None]
+    if unset:
+        raise ValueError(
+            f"Parameters {unset} are unset (null) in the base config; set "
+            "base values to differentiate through them."
+        )
+    require_device(device)
+    device = torch.device(device)
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    w = int(working_months)
+    R = int(config.retirement_years)
+    n = int(num_paths)
+    statics = statics_from_config(config)
+    stream_seed = _grid_stream_seed(seed)
+
+    def metric(theta):
+        p = _params_from_theta(config, names, theta, device=device)
+        packed = pack_params(p, stream_seed, [w], R, dtype=dtype,
+                             device=device)
+        final = kernel.simulate(packed, statics, R, n)["final_balance"]
+        mean = final.to(torch.float64).mean()
+        return mean, mean
+
+    theta0 = torch.tensor([float(dump[n]) for n in names],
+                          dtype=torch.float64, device=device)
+    _count(PLAIN_CALLS, "ad")
+    grads, value = torch.func.jacfwd(metric, has_aux=True)(theta0)
+    grads = grads.cpu().numpy()
+    return {
+        "mean_final_balance": float(value),
+        "d_mean_final": {name: float(g) for name, g in zip(names, grads)},
+    }

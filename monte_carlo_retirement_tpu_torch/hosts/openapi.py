@@ -228,10 +228,8 @@ def build_spec() -> Dict[str, Any]:
                 "summary": "Per-parameter derivatives (tornado rows)",
                 "description": "Central finite differences over a "
                 "common-random-numbers scenario grid (one batched dispatch "
-                "of 1+2K rows). The AD cross-check of the mean-final-balance "
-                "slope (`include_ad`) is not ported to this server yet: a "
-                "request with `include_ad: true` answers 400 with a JSON "
-                "`detail` naming ROADMAP.md item A9.",
+                "of 1+2K rows), with an optional torch.func.jacfwd "
+                "cross-check of the mean-final-balance slope (`include_ad`).",
                 "requestBody": _json_body(sens_req),
                 "responses": _json_ok(
                     sens_resp, "Rows in tornado order "

@@ -2,10 +2,10 @@
 assembly.
 
 A copy of the JAX package's ``hosts/sensitivity.py`` with the port's
-imports and a ``device`` argument. The request schema is the same; a
-request with ``include_ad=True`` raises NotImplementedError: the AD
-cross-check (``torch.func.jacfwd`` through the plain loop) is ROADMAP.md
-item A9, and the flag is never dropped silently.
+imports and a ``device`` argument. The request schema and the response are
+the same; ``include_ad=True`` adds the AD cross-check
+(``engine/sensitivity.sensitivity_ad``: ``torch.func.jacfwd`` through the
+plain month loop on the same device).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from pydantic import BaseModel, Field
 from ..config import Config
 from ..engine.sensitivity import (
     DEFAULT_PARAMS,
+    sensitivity_ad,
     sensitivity_fd,
     validate_params,
 )
@@ -50,8 +51,9 @@ class SensitivityRequest(BaseModel):
     include_ad: bool = Field(
         False,
         description=(
-            "Also differentiate mean final balance through the scan kernel "
-            "(jax.jacfwd) as an independent cross-check of the FD slopes."
+            "Also differentiate mean final balance through the month loop "
+            "(torch.func.jacfwd) as an independent cross-check of the FD "
+            "slopes."
         ),
     )
     ad_num_paths: int = Field(32_768, ge=1, le=1_048_576)
@@ -107,16 +109,11 @@ def run_sensitivity_request(
     request: SensitivityRequest, prepared=None, progress_callback=None,
     device="cuda",
 ) -> dict:
-    """Dispatch the CRN grid on ``device`` and assemble the response dict
-    (worker-thread safe). ``progress_callback`` receives the grid's
-    per-launch ``grid_chunk`` events (the 1+2K probe rows run as chunked
-    launches)."""
-    if request.include_ad:
-        raise NotImplementedError(
-            "include_ad (the AD cross-check of the FD slopes) is not ported "
-            "yet (ROADMAP.md item A9: torch.func.jacfwd through the plain "
-            "loop)"
-        )
+    """Dispatch the CRN grid (and optionally the AD pass) on ``device`` and
+    assemble the response dict (worker-thread safe). ``progress_callback``
+    receives the grid's per-launch ``grid_chunk`` events (the 1+2K probe
+    rows run as chunked launches) and a ``phase`` event before the AD
+    pass."""
     config, names, num_paths = prepared or prepare_sensitivity(request)
     seed = int(config.seed) if config.seed is not None else 0
     rows = sensitivity_fd(
@@ -130,9 +127,26 @@ def run_sensitivity_request(
         device=device,
         progress_callback=progress_callback,
     )
+    ad = None
+    if request.include_ad:
+        if progress_callback is not None:
+            progress_callback({
+                "type": "phase",
+                "phase": "sensitivity_ad",
+                "message": "Differentiating mean final balance through the "
+                "month loop (torch.func.jacfwd cross-check)…",
+            })
+        ad = sensitivity_ad(
+            config,
+            request.working_months,
+            num_paths=request.ad_num_paths,
+            seed=seed,
+            params=names,
+            device=device,
+        )
     out_rows = []
     for r in rows:
-        out_rows.append({
+        row = {
             "param": r.param,
             "base_value": _sig(r.base_value, 9),
             "step_plus": _sig(r.step_plus),
@@ -147,11 +161,17 @@ def run_sensitivity_request(
             "success_per_step": _sig(r.success_per_step),
             "practical_step": _sig(r.practical_step),
             "success_sigma": _sig(r.success_sigma, 3),
-        })
+        }
+        if ad is not None:
+            row["ad_d_mean_final"] = _sig(ad["d_mean_final"][r.param])
+        out_rows.append(row)
     out_rows.sort(key=lambda r: -abs(r["success_per_step"]))
-    return {
+    result = {
         "scenario": config.Nickname,
         "working_months": int(request.working_months),
         "num_paths": num_paths,
         "rows": out_rows,
     }
+    if ad is not None:
+        result["mean_final_balance_ad"] = round(ad["mean_final_balance"], 2)
+    return result

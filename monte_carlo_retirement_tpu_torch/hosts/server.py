@@ -35,8 +35,8 @@ and raises at startup when there is none, never falling back to the CPU;
 ``MCRT_HOST`` / ``MCRT_PORT`` (default 0.0.0.0:8080) bind it. A capped
 ``/api/simulate`` (above ``MCRT_MAX_RAW_PATHS`` final paths) runs the
 final batch in reduced mode: the reductions run on the device and only
-kilobytes of tables cross to the host. ``include_ad`` on the sensitivity
-routes is not ported yet (ROADMAP.md item A9) and answers 400.
+kilobytes of tables cross to the host. A final run above
+``MCRT_MAX_DEVICE_PATHS`` paths runs in chunks (``engine/runner.py``).
 """
 
 from __future__ import annotations
@@ -409,8 +409,8 @@ async def grid(request: web.Request) -> web.Response:
 async def sensitivity(request: web.Request) -> web.Response:
     """POST /api/sensitivity — per-parameter derivatives of success
     probability and final-balance statistics (finite differences over a
-    common-random-numbers scenario grid). Same 422/400 taxonomy as the grid
-    surface; ``include_ad`` (not ported yet) answers 400."""
+    common-random-numbers scenario grid, plus the optional ``include_ad``
+    cross-check). Same 422/400 taxonomy as the grid surface."""
     body = await request.json()
     try:
         if not isinstance(body, dict):
@@ -430,8 +430,7 @@ async def sensitivity(request: web.Request) -> web.Response:
     try:
         result = await _run_engine(run_sensitivity_request, req, prepared,
                                    device=request.app[DEVICE])
-    except (ValueError, NotImplementedError) as exc:
-        # NotImplementedError: include_ad, whose message names ROADMAP A9.
+    except ValueError as exc:
         raise web.HTTPBadRequest(text=str(exc))
     except Exception as exc:  # pragma: no cover - unexpected engine failure
         log.exception("Sensitivity analysis failed")

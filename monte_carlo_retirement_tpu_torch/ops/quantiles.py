@@ -12,9 +12,24 @@ kernels' layout — sorts without a copy.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+
+def sorted_columns(
+    x: torch.Tensor, valid: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The columns of an (n, C) table sorted along the path axis, as rows
+    of a (C, n) table, masked entries as +inf; and each column's valid
+    count (C,)."""
+    xt = x.t()  # (C, n)
+    if valid is None:
+        n_valid = torch.full((xt.shape[0],), xt.shape[1], dtype=torch.int64,
+                             device=x.device)
+        return torch.sort(xt, dim=1).values, n_valid
+    vt = valid.t()
+    return torch.sort(torch.where(vt, xt, torch.inf), dim=1).values, vt.sum(dim=1)
 
 
 def quantiles_percol(
@@ -33,16 +48,8 @@ def quantiles_percol(
             f"expected x (n, C) and qmat (C, K); got {tuple(x.shape)} / "
             f"{tuple(qmat.shape)}"
         )
-    xt = x.t()  # (C, n)
-    n = xt.shape[1]
-    if valid is None:
-        n_valid = torch.full((xt.shape[0],), n, dtype=torch.int64,
-                             device=x.device)
-        sorted_x = torch.sort(xt, dim=1).values
-    else:
-        vt = valid.t()
-        n_valid = vt.sum(dim=1)
-        sorted_x = torch.sort(torch.where(vt, xt, torch.inf), dim=1).values
+    sorted_x, n_valid = sorted_columns(x, valid)
+    n = sorted_x.shape[1]
     qmat = torch.as_tensor(qmat, dtype=x.dtype, device=x.device)
     last = torch.clamp(n_valid - 1, min=0)[:, None]  # (C, 1)
     h = qmat * last.to(x.dtype)
@@ -55,6 +62,45 @@ def quantiles_percol(
     diff = b - a
     out = torch.where(t >= 0.5, b - diff * (1.0 - t), a + diff * t)
     return torch.where((n_valid > 0)[:, None], out, torch.nan)
+
+
+# Per-chunk passes of the chunked run's exact quantiles
+# (ops/chunked_quantiles.py): each sorts the chunk's columns once and reads
+# what it needs by binary search or gather, so no (n, C, edges) compare
+# table is ever materialised. Masked entries count as +inf, as above.
+
+
+def count_le(x: torch.Tensor, edges: torch.Tensor,
+             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``count(x[:, c] <= edges[c, j])`` of an (n, C) chunk for (C, E)
+    edges: (C, E) int64."""
+    srt, _ = sorted_columns(x, valid)
+    edges = torch.as_tensor(edges, dtype=x.dtype, device=x.device)
+    return torch.searchsorted(srt.contiguous(), edges.contiguous(), right=True)
+
+
+def ceil_stats(x: torch.Tensor, v: torch.Tensor,
+               valid: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Count-at-floor and smallest entry above the floor per (column,
+    rank) of an (n, C) chunk for (C, K) floor values ``v``: the (C, K)
+    int64 ``count(x <= v)`` and the (C, K) minimum of the entries > v
+    (+inf where none)."""
+    srt, _ = sorted_columns(x, valid)
+    v = torch.as_tensor(v, dtype=x.dtype, device=x.device).contiguous()
+    n = srt.shape[1]
+    cnt = torch.searchsorted(srt.contiguous(), v, right=True)
+    above = torch.gather(srt, 1, torch.clamp(cnt, max=n - 1))
+    return cnt, torch.where(cnt < n, above, torch.inf)
+
+
+def floor_values(x: torch.Tensor, ranks: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The order statistics of an (n, C) chunk at (C, K) 0-indexed
+    ``ranks`` per column: (C, K)."""
+    srt, _ = sorted_columns(x, valid)
+    ranks = torch.as_tensor(ranks, dtype=torch.int64, device=x.device)
+    return torch.gather(srt, 1, ranks)
 
 
 def exact_quantiles(

@@ -77,11 +77,18 @@ def vector_summary(success, final, start, first_year_real_gross):
     return success_prob, tbl[0, 0], tbl[1, 0], tbl[2, 0], tbl[3, :]
 
 
+def real_series(traj, price):
+    """The inflation-adjusted trajectory: one expression for the whole run
+    and for each chunk of a chunked run (``engine/runner.py``), so both
+    derive bit-equal values."""
+    return torch.where(price > EPS, traj / torch.clamp(price, min=EPS), 0.0)
+
+
 def series_summary(traj, price, wr, sample_idx):
     """Per-year percentile tables + sample paths from the (n, L)/(n, R)
     series. Returns (traj_pcts, real_pcts, samples, samples_real, wr_pcts,
     wr_counts)."""
-    real = torch.where(price > EPS, traj / torch.clamp(price, min=EPS), 0.0)
+    real = real_series(traj, price)
     traj_pcts = exact_quantiles(traj, TRAJECTORY_PERCENTILES)
     real_pcts = exact_quantiles(real, TRAJECTORY_PERCENTILES)
     samples = traj[sample_idx]

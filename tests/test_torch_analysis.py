@@ -28,6 +28,7 @@ from monte_carlo_retirement_tpu.hosts.optimize import (  # noqa: E402
     OptimizeJointResponse,
     OptimizeResponse,
 )
+from monte_carlo_retirement_tpu.hosts import sensitivity as jax_host_sens  # noqa: E402
 from monte_carlo_retirement_tpu.hosts.sensitivity import (  # noqa: E402
     SensitivityResponse,
 )
@@ -150,10 +151,26 @@ def test_optimize_params_joint_arithmetic_equals_jax(fake_grids):
 
 
 def test_sensitivity_request_with_ad_raises():
-    request = host_sens.SensitivityRequest(config=BASE, working_months=6,
-                                           include_ad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
-        host_sens.run_sensitivity_request(request, device="cpu")
+    """``include_ad`` answers with the AD column (JAX's keys), and raises
+    only where JAX does: for the FD-only dotted parameters."""
+    kw = dict(config=BASE, working_months=6, num_paths=128, include_ad=True,
+              ad_num_paths=128, params=["monthly_expenses", "initial_balance"])
+    got = host_sens.run_sensitivity_request(
+        host_sens.SensitivityRequest(**kw), device="cpu")
+    want = jax_host_sens.run_sensitivity_request(
+        jax_host_sens.SensitivityRequest(**kw))
+    SensitivityResponse.model_validate(got)
+    assert got.keys() == want.keys()
+    assert [r.keys() for r in got["rows"]] == [r.keys() for r in want["rows"]]
+    rows = {r["param"]: r for r in got["rows"]}
+    assert rows["monthly_expenses"]["ad_d_mean_final"] < 0
+    assert rows["initial_balance"]["ad_d_mean_final"] > 0
+    dotted = dict(kw, config=dict(BASE, longevity={
+        "mode_age": 80.0, "dispersion_years": 8.0, "max_age": 105.0}),
+        params=["longevity.mode_age"])
+    with pytest.raises(ValueError, match="FD-only"):
+        host_sens.run_sensitivity_request(
+            host_sens.SensitivityRequest(**dotted), device="cpu")
 
 
 @pytest.mark.parametrize(

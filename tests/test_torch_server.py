@@ -7,8 +7,8 @@ with the same status code and the same payload structure (key sets and
 list lengths; lists whose length depends on the draws excepted), SSE
 streams carry the same event sequence, and the statistics agree within 4σ
 (the two packages draw from different generators). Port-only checks: the
-``include_ad`` JSON error, the OpenAPI path set against the running
-router, the card default, concurrent answers equal to serial ones, and the
+``include_ad`` answer against the port's own AD, the OpenAPI path set
+against the running router, the card default, concurrent answers equal to serial ones, and the
 launch counters under threads.
 """
 
@@ -65,6 +65,7 @@ GRID = {"config": SMALL, "working_months": [12, 12, 18], "num_paths": 64,
         ]}
 SENS = {"config": SMALL, "working_months": 12, "num_paths": 64,
         "params": ["monthly_expenses", "initial_balance"]}
+SENS_AD = {**SENS, "include_ad": True, "ad_num_paths": 256}
 OPT = {"config": SMALL, "working_months": 12, "num_paths": 64,
        "param": "allocation_inv1_pct", "lo": 0.3, "hi": 0.9, "points": 3,
        "rounds": 1}
@@ -94,6 +95,12 @@ CASES = {
     "sensitivity": ("POST", "/api/sensitivity", SENS),
     "sensitivity_stream": ("POST", "/api/sensitivity/stream", SENS),
     "sensitivity_422": ("POST", "/api/sensitivity", {**SENS, "params": ["nope"]}),
+    "sensitivity_ad": ("POST", "/api/sensitivity", SENS_AD),
+    "sensitivity_ad_stream": ("POST", "/api/sensitivity/stream", SENS_AD),
+    "sensitivity_ad_dotted_400": ("POST", "/api/sensitivity", {
+        **SENS_AD, "config": {**SMALL, "spending_guardrails": {
+            "upper_wr_pct": 6.0, "lower_wr_pct": 2.0}},
+        "params": ["spending_guardrails.upper_wr_pct"]}),
     "optimize": ("POST", "/api/optimize", OPT),
     "optimize_stream": ("POST", "/api/optimize/stream", OPT),
     "optimize_422": ("POST", "/api/optimize", {**OPT, "param": "no_such_field"}),
@@ -214,23 +221,31 @@ def _run(coro):
     return asyncio.run(coro)
 
 
-def test_include_ad_answers_a_json_error_naming_a9():
-    body = {**SENS, "include_ad": True}
+def test_include_ad_answers_a_json_error_naming_a9(answers):
+    """``include_ad`` answers 200 on the route and its stream (it answered a
+    JSON 400 before the AD pass was ported): every row carries the port's
+    own AD slope and the result its mean final balance, the stream says
+    ``sensitivity_ad`` before the result, and no answer names A9."""
+    from monte_carlo_retirement_tpu_torch.config import Config
+    from monte_carlo_retirement_tpu_torch.engine.sensitivity import sensitivity_ad
 
-    async def scenario():
-        client = TestClient(TestServer(server.create_app(device="cpu")))
-        await client.start_server()
-        try:
-            plain = await _ask(client, "POST", "/api/sensitivity", body)
-            stream = await _ask(client, "POST", "/api/sensitivity/stream", body)
-        finally:
-            await client.close()
-        return plain, stream
-
-    (status, ctype, detail), (_s, _c, events) = _run(scenario())
-    assert (status, ctype) == (400, "application/json")
-    assert "A9" in detail["detail"] and "include_ad" in detail["detail"]
-    assert events[-1]["type"] == "error" and "A9" in events[-1]["message"]
+    status, ctype, got = answers["port"]["sensitivity_ad"]
+    assert (status, ctype) == (200, "application/json")
+    ad = sensitivity_ad(Config(**SMALL), SENS_AD["working_months"],
+                        num_paths=SENS_AD["ad_num_paths"], seed=SMALL["seed"],
+                        params=SENS_AD["params"], device="cpu")
+    assert got["mean_final_balance_ad"] == round(ad["mean_final_balance"], 2)
+    for row in got["rows"]:
+        want = ad["d_mean_final"][row["param"]]
+        assert row["ad_d_mean_final"] == pytest.approx(want, rel=1e-5)
+    events = answers["port"]["sensitivity_ad_stream"][2]
+    phases = [e["phase"] for e in events if e["type"] == "phase"]
+    assert phases == ["sensitivity", "sensitivity_ad"]
+    assert events[-1]["data"] == got
+    refused = answers["port"]["sensitivity_ad_dotted_400"]
+    assert refused[0] == 400 and "FD-only" in refused[2]["detail"]
+    assert not any("A9" in json.dumps(answers["port"][case][2]) for case in (
+        "sensitivity_ad", "sensitivity_ad_stream", "sensitivity_ad_dotted_400"))
 
 
 def test_openapi_paths_equal_the_running_router():
@@ -252,7 +267,8 @@ def test_openapi_paths_equal_the_running_router():
     spec, registered, ctype, html = _run(scenario())
     assert set(spec["paths"]) == registered
     assert "PyTorch" in spec["info"]["title"]
-    assert "A9" in spec["paths"]["/api/sensitivity"]["post"]["description"]
+    description = spec["paths"]["/api/sensitivity"]["post"]["description"]
+    assert "include_ad" in description and "A9" not in description
     for name in ("SimulationRequest", "SimulationResponse", "GridRequest",
                  "SensitivityResponse", "OptimizeJointResponse", "Config"):
         assert name in spec["components"]["schemas"], name
