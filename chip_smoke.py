@@ -114,11 +114,27 @@ result):
      to a 1M unchunked run's, success within 4 sigma of it, peak memory
      beside the card's, wall time split into simulation and count passes.
      Each chunked run: chunks, band passes and full-kernel launches.
+ 12. the paths mesh, four shards on cuda:0 (make_mesh(["cuda:0"] * 4)),
+     counters reset before each counted call, no plain call allowed: (a)
+     probe_sharded (16 x 2**20 x 600 and at 1M, where it counts the
+     padding: equal to a single probe at 4 x local_pad), simulate_sharded,
+     simulate_full_sharded, grid_sharded and grid_raw_sharded (phase 6's
+     chunk) each equal to the single launch, their times beside it, one
+     trace_to trace; (b) Engine(mesh) on phase 5b's request (its month and
+     successful paths; the runs equal to the mesh-less engine's), 11a's
+     4,195,304 paths at 2**20 per shard in 2 mesh chunks equal to the
+     unchunked run, run_scenario_grid(mesh) equal to the mesh-less chunk;
+     (c) two gloo processes of hosts/dist_worker.py (two shards each) and a
+     one-rank NCCL group (four shards), all on cuda:0, every answer equal
+     to (b)'s and each shard's final balances to the single-device run's;
+     (d) run_scenario_batch over three Statics in 3 grid launches, each row
+     equal to the row alone. Walls through utils.profiling.device_timer.
 
 The kernels' line comes before the last two: {"kernels": [...]}, one row
 per kernel with its launches on the main path (phase 5), the grid path
-(phase 8), the server's routes (phase 10a-d) and the chunked runs (phase
-11), its time, bound and plain version's time; then the card's
+(phase 8), the server's routes (phase 10a-d), the chunked runs (phase
+11) and the paths mesh (phase 12), its time, bound and plain version's
+time; then the card's
 name and power limit on their own line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -205,6 +221,12 @@ UNCHUNKED = 10**12  # a budget no run here reaches
 ALL_ON_SENSITIVITY = ("market_crashes.frequency_per_year", "longevity.mode_age",
                       "spending_guardrails.upper_wr_pct",
                       "inv1_annual_tax_on_gains_rate")
+MESH_SHARDS = 4  # phase 12's mesh: four shards on cuda:0
+N_12A = 2**20  # bench.py's paths
+# Phase 12's chunked runs (b, c): two mesh-sized chunks of 4 x 2**16.
+N_12_CHUNKED = 2 * MESH_SHARDS * 2**16
+BUDGET_12_CHUNKED = 2**16
+CHILD_TIMEOUT_S = 300  # each process of phase 12c
 
 
 def _card_line() -> str:
@@ -1688,6 +1710,336 @@ def phase_chunked(report):
             os.environ["MCRT_MAX_DEVICE_PATHS"] = old_env
 
 
+def _mesh_children(args, n_procs, backend, shards):
+    """``n_procs`` processes of hosts/dist_worker.py in one group on cuda:0,
+    started at once; returns them (the caller collects and reaps)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for pid in range(n_procs):
+        env = dict(os.environ, MCRT_COORDINATOR=f"127.0.0.1:{port}",
+                   MCRT_NUM_PROCESSES=str(n_procs), MCRT_PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.hosts.dist_worker", "--device", "cuda",
+             "--shards", str(shards), "--backend", backend, *args],
+            env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    return procs
+
+
+def _collect_children(tag, procs):
+    results = []
+    for p in procs:
+        out, err = p.communicate(timeout=CHILD_TIMEOUT_S)
+        lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"[{tag}] a worker failed (rc {p.returncode}):\n"
+                                 f"{err[-3000:]}")
+        results.append(json.loads(lines[0][len("RESULT "):]))
+    return sorted(results, key=lambda r: r["process"])
+
+
+def phase_mesh(report):
+    """12: the paths mesh on the card (four shards on cuda:0)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine import sharded
+    from monte_carlo_retirement_tpu_torch.engine.runner import Engine
+    from monte_carlo_retirement_tpu_torch.engine.scenario_batch import (
+        _grid_stream_seed,
+        run_scenario_batch,
+        run_scenario_grid,
+    )
+    from monte_carlo_retirement_tpu_torch.hosts import dist_worker
+    from monte_carlo_retirement_tpu_torch.models.retirement import stack_params
+    from monte_carlo_retirement_tpu_torch.parallel.mesh import make_mesh
+    from monte_carlo_retirement_tpu_torch.utils.profiling import (
+        device_timer,
+        phase_timings,
+        trace_to,
+    )
+
+    mesh = make_mesh(["cuda:0"] * MESH_SHARDS)
+    launches = report["launches"]
+    mesh_path = report["launches_mesh"] = {}
+    times = report["mesh_times"] = {}
+
+    def counted(tag, fn):
+        """One call on the mesh path: counters reset before, read after, no
+        plain version allowed."""
+        ck.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+        if any(plain.values()):
+            raise AssertionError(f"[{tag}] plain versions ran: {plain}")
+        for name, count in ran.items():
+            launches[name] = launches.get(name, 0) + count
+            mesh_path[name] = mesh_path.get(name, 0) + count
+        return out, ran
+
+    def same(tag, what, a, b):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError(f"[{tag}] {what} differs from the single launch")
+
+    print(f"[12] mesh: {mesh.size} shards on {mesh.device} (they run in turn: "
+          f"the times below are no yardstick for {mesh.size} cards)")
+    # 12a: the five sharded launches == the single-device launch.
+    with device_timer("12a"):
+        eng = Engine(_config(retirement_years=50, initial_balance=1_500_000.0,
+                             monthly_expenses=4_000.0), device="cuda")
+        R, st, params = eng.retirement_years, eng.statics, eng.params
+        L = 1 + eng._t_scan(0) // 12
+        s_search, s_final = eng._stream_seed("search"), eng._stream_seed("final")
+        m16 = list(range(16))
+        pad = mesh.plan(N_FULL).simulated
+        for n in (N_12A, N_FULL):
+            got, ran = counted("12a", lambda: sharded.probe_sharded(
+                params, s_search, m16, R, n, st, mesh=mesh))
+            want = ck.probe(eng._pack(m16, "search"), st, R, got.simulated)
+            same("12a", f"probe at {n:,}", torch.as_tensor(got.counts), want.counts)
+            exact = ck.probe(eng._pack(m16, "search"), st, R, n).counts
+            print(f"[12a] probe_sharded 16 x {n:,} x 600: {ran['probe']} launches; "
+                  f"survivors equal a single probe at {got.simulated:,} paths "
+                  f"(W=0: {got.percent[0]:.4f}% over them, {exact[0].item() / n * 100:.4f}% "
+                  f"over exactly {n:,})")
+        got, ran = counted("12a", lambda: sharded.simulate_sharded(
+            params, s_final, 0, R, N_FULL, st, mesh=mesh))
+        packed = eng._pack(0, "final")
+        for a, b, c in zip(got, ck.simulate(packed, st, R, pad),
+                           ck.simulate(packed, st, R, N_FULL)):
+            same("12a", "simulate", a, b)
+            same("12a", "simulate (first n)", a[:N_FULL], c)
+        print(f"[12a] simulate_sharded 1M x 600: {ran['simulate']} launches; "
+              f"{pad:,} entries equal a single launch at {pad:,}, the first "
+              f"{N_FULL:,} one at {N_FULL:,}")
+        got, ran = counted("12a", lambda: sharded.simulate_full_sharded(
+            params, s_final, 0, R, N_FULL, L, st, mesh=mesh))
+        single = ck.simulate_full(packed, st, R, pad, L)
+        for name in single:
+            same("12a", f"full {name}", got[name], single[name])
+        first = ck.simulate_full(packed, st, R, N_FULL, L)
+        for name in first:
+            same("12a", f"full {name} (first n)", got[name][:N_FULL], first[name])
+        print(f"[12a] simulate_full_sharded 1M x 600: {ran['full']} launches; all "
+              f"10 outputs equal a single launch at {pad:,} and at {N_FULL:,}")
+        del got, single, first
+        configs = _grid_chunk_configs()
+        GR = configs[0].retirement_years
+        gmonths = [GRID_W] * len(configs)
+        batch = stack_params(configs)
+        gseed = _grid_stream_seed(SEED)
+        gst = ck.statics_from_config(configs[0])
+        got, ran = counted("12a", lambda: sharded.grid_sharded(
+            batch, gseed, gmonths, GR, N_FULL, gst, mesh=mesh))
+        gpacked = ck.pack_grid(batch, gseed, gmonths, GR, device="cuda")
+        single = ck.grid(gpacked, gst, GR, pad)
+        same("12a", "grid counts", torch.as_tensor(got.counts), single.counts)
+        raw_out, ran_raw = counted("12a", lambda: sharded.grid_raw_sharded(
+            batch, gseed, gmonths, GR, N_FULL, gst, mesh=mesh))
+        first = ck.grid(gpacked, gst, GR, N_FULL)
+        for a, b, c in zip(raw_out, single, first):
+            same("12a", "grid_raw", a, b)
+            if a.ndim == 2:
+                same("12a", "grid_raw (first n)", a[:, :N_FULL], c)
+        print(f"[12a] grid_sharded and grid_raw_sharded, the 16-row chunk (W="
+              f"{GRID_W}, R={GR}) at 1M: {ran['grid']} + {ran_raw['grid']} "
+              f"launches; counts and (16, {pad:,}) tables equal a single launch")
+        del raw_out, single, first
+        # Four shards on one card vs one launch (CUDA events, min of 3).
+        tm = {
+            "probe_sharded": _time_ms(lambda: sharded.probe_sharded(
+                params, s_search, m16, R, N_12A, st, mesh=mesh), repeats=3),
+            "probe": _time_ms(lambda: ck.probe(
+                eng._pack(m16, "search"), st, R, N_12A), repeats=3),
+            "simulate_sharded": _time_ms(lambda: sharded.simulate_sharded(
+                params, s_final, 0, R, N_FULL, st, mesh=mesh), repeats=3),
+            "simulate": _time_ms(lambda: ck.simulate(packed, st, R, N_FULL),
+                                 repeats=3),
+            "full_sharded": _time_ms(lambda: sharded.simulate_full_sharded(
+                params, s_final, 0, R, N_FULL, L, st, mesh=mesh), repeats=3),
+            "full": _time_ms(lambda: ck.simulate_full(packed, st, R, N_FULL, L),
+                             repeats=3),
+            "grid_sharded": _time_ms(lambda: sharded.grid_sharded(
+                batch, gseed, gmonths, GR, N_FULL, gst, mesh=mesh), repeats=3),
+            "grid": _time_ms(lambda: ck.grid(gpacked, gst, GR, N_FULL), repeats=3),
+        }
+        times.update(tm)
+        print(f"[12a] card times (CUDA events, warm, min of 3) on {report['card']}, "
+              f"{mesh.size} shards on one card vs one launch: " + ", ".join(
+                  f"{k} {tm[k + '_sharded']:.3f} ms vs {tm[k]:.3f} ms"
+                  for k in ("probe", "simulate", "full", "grid")))
+        with tempfile.TemporaryDirectory() as tdir:
+            with trace_to(tdir):
+                sharded.probe_sharded(params, s_search, m16, R, N_12A, st,
+                                      mesh=mesh)
+            (name,) = os.listdir(tdir)
+            with open(os.path.join(tdir, name)) as fh:
+                events = json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        busy_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+        print(f"[12a] trace_to: {len(events)} events, {len(kernels)} card kernels "
+              f"({busy_ms:.3f} ms busy) in one probe_sharded call")
+        if not kernels:
+            raise AssertionError("[12a] the trace holds no card kernel")
+
+    # 12b: Engine(mesh=) on phase 5b's request, then chunked, then a grid.
+    months = report["5b"]["months"]
+    with device_timer("12b"):
+        cfg = _config(num_simulations_search=N_FULL, num_simulations_main=N_FULL)
+        kw = dict(search_paths=N_FULL, paths=N_FULL, device="cuda",
+                  chunked_paths=N_12_CHUNKED, chunk_budget=BUDGET_12_CHUNKED)
+        got, ran = counted("12b", lambda: dist_worker.run_workload(
+            cfg, mesh=mesh, **kw))
+        want = dist_worker.run_workload(cfg, **kw)
+        report["12b"] = got
+        search_month, successes = got["search"]["months"], got["raw"]["successes"]
+        # The sharded probe counts the padding of the last shard (trap 1):
+        # 1,015,808 paths for 1M, so the curve moves a little, the answer
+        # should not; the runs take the first 1M paths and must be equal.
+        bad = [k for k in ("raw", "reduced", "chunked") if got[k] != want[k]]
+        curve = {pt["working_months"]: pt["probability"]
+                 for pt in want["search"]["curve"]}
+        moved = max(abs(pt["probability"] - curve[pt["working_months"]])
+                    for pt in got["search"]["curve"]
+                    if pt["working_months"] in curve)
+        print(f"[12b] Engine(mesh) on 5b's request: search {search_month} months "
+              f"({got['search']['probability']:.4f}% over "
+              f"{mesh.plan(N_FULL).simulated:,} simulated paths; mesh-less "
+              f"{want['search']['months']} months, {want['search']['probability']:.4f}%"
+              f" over {N_FULL:,}; curve points moved by at most {moved:.2f} pts), "
+              f"final {successes:,} successful paths (5b: {months}, "
+              f"{report['5b']['successes']:,}); launches {ran}; runs differing from "
+              f"the mesh-less engine: {bad or 'none'} (raw, reduced, chunked run "
+              f"of {N_12_CHUNKED:,} at {BUDGET_12_CHUNKED:,} per shard)")
+        if ((search_month, successes) != (months, report["5b"]["successes"])
+                or want["search"]["months"] != months or bad):
+            raise AssertionError("[12b] the meshed engine differs")
+        old_env = os.environ.get("MCRT_MAX_DEVICE_PATHS")
+        eng_log = logging.getLogger("mcrt.engine")
+        old_level = eng_log.level
+        eng5 = Engine(cfg, device="cuda")
+        eng_m = Engine(cfg, device="cuda", mesh=mesh)
+        try:
+            for reduced in (False, True):
+                os.environ["MCRT_MAX_DEVICE_PATHS"] = str(UNCHUNKED)
+                ref = eng5.run(months, N_11A, reduced=reduced)
+                os.environ["MCRT_MAX_DEVICE_PATHS"] = str(2**20)
+                chunk_log = _ChunkLog()
+                eng_log.addHandler(chunk_log)
+                eng_log.setLevel(logging.INFO)
+                try:
+                    res, ran = counted("12b", lambda: eng_m.run(
+                        months, N_11A, reduced=reduced))
+                finally:
+                    eng_log.removeHandler(chunk_log)
+                    eng_log.setLevel(old_level)
+                stats = chunk_log.stats[-1]
+                diff = _differing_fields(res, ref)
+                print(f"[12b] {N_11A:,} paths, {'reduced' if reduced else 'raw'}, "
+                      f"mesh of {mesh.size} at 2**20 per shard: {stats['chunks']} "
+                      f"chunks, {stats['band_passes']} band passes, "
+                      f"{ran['full']} full launches, wall {stats['wall_s']:.3f} s; "
+                      f"fields differing from the unchunked single-device run: "
+                      f"{diff or 'none'}")
+                if diff or stats["chunks"] != 2 or stats["resident"]:
+                    raise AssertionError("[12b] the chunked meshed run differs")
+                del res, ref
+        finally:
+            if old_env is None:
+                os.environ.pop("MCRT_MAX_DEVICE_PATHS", None)
+            else:
+                os.environ["MCRT_MAX_DEVICE_PATHS"] = old_env
+        got_g, ran = counted("12b", lambda: run_scenario_grid(
+            configs, gmonths, N_FULL, seed=SEED, device="cuda", mesh=mesh))
+        want_g = run_scenario_grid(configs, gmonths, N_FULL, seed=SEED,
+                                   device="cuda")
+        bad = [k for k, a, b in zip(want_g._fields, got_g, want_g)
+               if not np.array_equal(a, b)]
+        print(f"[12b] run_scenario_grid(mesh) on the 16-row chunk: {ran['grid']} "
+              f"launches; fields differing from phase 6's chunk statistics: "
+              f"{bad or 'none'}")
+        if bad:
+            raise AssertionError("[12b] the meshed grid differs")
+
+    # 12c: process groups on the card.
+    with device_timer("12c"):
+        args = ["--search-paths", str(N_FULL), "--paths", str(N_FULL),
+                "--chunked-paths", str(N_12_CHUNKED),
+                "--chunk-budget", str(BUDGET_12_CHUNKED),
+                "--overrides", json.dumps({"seed": SEED})]
+        t0 = time.perf_counter()
+        pair = _mesh_children(args, 2, "gloo", MESH_SHARDS // 2)
+        nccl = _mesh_children(args, 1, "nccl", MESH_SHARDS)
+        try:
+            pair_res = _collect_children("12c", pair)
+            nccl_res = _collect_children("12c", nccl)
+        finally:
+            for p in pair + nccl:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate(timeout=60)
+        wall = time.perf_counter() - t0
+        single = Engine(cfg, device="cuda").run(months, N_FULL)
+        for r in pair_res + nccl_res:
+            answers = {k: r[k] for k in ("search", "raw", "reduced", "chunked")}
+            bad = [k for k in answers if answers[k] != report["12b"][k]]
+            shards_ok = all(
+                s["final_balance"] == dist_worker.digest(
+                    single.final_balance[s["start"]:s["start"] + s["paths"]])
+                for s in r["shards"])
+            print(f"[12c] {r['backend']} process {r['process']}/"
+                  f"{r['num_processes']} ({len(r['shards'])} of {r['global_shards']} "
+                  f"shards, first paths {[s['start'] for s in r['shards']]}): "
+                  f"search {r['search']['months']} months, "
+                  f"{r['raw']['successes']:,} successful paths; answers "
+                  f"differing from the single-process run: {bad or 'none'}; its "
+                  f"shards' final balances bit-equal to the single-device run: "
+                  f"{shards_ok}")
+            if bad or not shards_ok:
+                raise AssertionError("[12c] a process group's run differs")
+        if [r["coordinator"] for r in pair_res] != [True, False]:
+            raise AssertionError("[12c] the pair has no single coordinator")
+        print(f"[12c] 2 gloo processes x {MESH_SHARDS // 2} shards and 1 nccl "
+              f"process x {MESH_SHARDS} shards, all on cuda:0 at once: wall "
+              f"{wall:.1f} s")
+        times["12c_children_wall_s"] = wall
+
+    # 12d: a mixed-Statics batch (three Statics, mixed W).
+    with device_timer("12d"):
+        base = {}
+        rows = [(base, 231), (dict(market_crashes=CRASHES), 231), (base, 200),
+                (dict(longevity=LONGEVITY), 180), (dict(market_crashes=CRASHES), 250),
+                (dict(longevity=LONGEVITY), 231)]
+        bconfigs = [_config(**dict(over)) for over, _ in rows]
+        bmonths = [w for _, w in rows]
+        got_b, ran = counted("12d", lambda: run_scenario_batch(
+            bconfigs, bmonths, N_FULL, seed=SEED, device="cuda"))
+        bad = []
+        for i, (c, w) in enumerate(zip(bconfigs, bmonths)):
+            alone = run_scenario_grid([c], [w], N_FULL, seed=SEED, device="cuda")
+            bad += [f"row {i} {k}" for k, a, b in zip(alone._fields, got_b, alone)
+                    if not np.array_equal(a[i], b[0])]
+        print(f"[12d] run_scenario_batch, {len(rows)} rows (config.json, + crashes, "
+              f"+ longevity; W {bmonths}) at 1M: {ran['grid']} grid launches; "
+              f"success % {np.round(got_b.success_probability, 3).tolist()}; "
+              f"fields differing from each row alone: {bad or 'none'}")
+        if ran["grid"] != 3 or bad:
+            raise AssertionError("[12d] the mixed batch differs")
+    walls = phase_timings()
+    times["walls_s"] = {k: v["total_s"] for k, v in walls.items()}
+    print("[12] phase walls (utils.profiling.device_timer): " + ", ".join(
+        f"{k} {v['total_s']:.2f} s" for k, v in walls.items()))
+    print(f"[12] launches on the mesh path: {mesh_path}")
+
+
 def main() -> int:
     import torch
 
@@ -1706,7 +2058,7 @@ def main() -> int:
     report = {}
     for phase in (phase_build, phase_normals, phase_probe, phase_full,
                   phase_main_path, phase_timings, phase_grid, phase_modes,
-                  phase_extensions, phase_server, phase_chunked):
+                  phase_extensions, phase_server, phase_chunked, phase_mesh):
         t0 = time.perf_counter()
         phase(report)
         print(f"--- {phase.__name__}: {time.perf_counter() - t0:.1f} s wall")
@@ -1717,6 +2069,7 @@ def main() -> int:
     main, grid_path, bounds = (report["launches_main"], report["launches_grid"],
                                report["bounds"])
     served, chunked = report["launches_server"], report["launches_chunked"]
+    mesh_path = report["launches_mesh"]
     pallas = "monte_carlo_retirement_tpu/engine/pallas_kernel.py"
 
     def row(name, key, replaces, err, ms, plain, bound_key, **extra):
@@ -1726,6 +2079,7 @@ def main() -> int:
                 "launches_grid_path": grid_path.get(key, 0),
                 "launches_server_path": served.get(key, 0),
                 "launches_chunked_path": chunked.get(key, 0),
+                "launches_mesh_path": mesh_path.get(key, 0),
                 "max_abs_err": report[err], "ms": times[ms],
                 "plain_ms": times[plain], "bound_ms": bounds[bound_key][0],
                 "bound_by": bounds[bound_key][1], "library_ms": None, **extra}
@@ -1753,7 +2107,9 @@ def main() -> int:
           "analysis modes (8a-d, f) and bench.py's workload (8e: "
           "launches_grid_path) plus the server's routes (10a-d: "
           "launches_server_path) plus the chunked runs (11a-c: "
-          "launches_chunked_path); *_all_on = the same under the all-on Statics")
+          "launches_chunked_path) plus the paths mesh (12a-d: "
+          "launches_mesh_path; the process groups of 12c launch in their own "
+          "processes, uncounted); *_all_on = the same under the all-on Statics")
     print(json.dumps({"kernels": kernels}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {

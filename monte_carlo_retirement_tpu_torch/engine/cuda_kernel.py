@@ -322,8 +322,8 @@ def check_grid_statics(params_batch: SimParams, statics: Statics) -> None:
             "scenario batch mixes tax-system/annual-bill/stream structure "
             "that conflicts with the compile-time Statics; all rows of one "
             "grid launch must share them (see "
-            "engine.scenario_batch.grid_statics). Mixed batches "
-            "(run_scenario_batch) wait for ROADMAP.md item A9."
+            "engine.scenario_batch.grid_statics; run_scenario_batch "
+            "groups a mixed batch by Statics)."
         )
 
 

@@ -1,7 +1,8 @@
 """Plan optimization over one or two config fields by batched grid refinement.
 
 A copy of the JAX package's ``engine/optimize.py`` with the port's imports
-(numpy only) and ``device`` in place of ``backend``/``mesh``. The
+(numpy only), ``device`` in place of ``backend`` (the port has one grid
+engine) and ``mesh`` passed on to ``run_scenario_grid``. The
 algorithm is NOT a serial line search: each refinement round evaluates the
 full product grid over the current interval(s) in ONE scenario-grid
 dispatch (engine/scenario_batch.py), takes the argmax cell, and zooms each
@@ -140,6 +141,7 @@ def optimize_params(
     points: Optional[int] = None,
     rounds: int = 3,
     device="cuda",
+    mesh=None,
     progress_callback: Optional[Callable[[dict], None]] = None,
 ) -> JointOptimizeResult:
     """Maximize ``objective`` over one or two config fields at fixed months.
@@ -258,6 +260,7 @@ def optimize_params(
             # exact CRN-preserving chunks.
             chunk_size=len(rows),
             device=device,
+            mesh=mesh,
             progress_callback=progress_callback,
         )
 
@@ -361,6 +364,7 @@ def optimize_param(
     points: int = 17,
     rounds: int = 3,
     device="cuda",
+    mesh=None,
     progress_callback: Optional[Callable[[dict], None]] = None,
 ) -> OptimizeResult:
     """Maximize ``objective`` over one scalar config field at fixed months.
@@ -380,6 +384,7 @@ def optimize_param(
         points=points,
         rounds=rounds,
         device=device,
+        mesh=mesh,
         progress_callback=progress_callback,
     )
 

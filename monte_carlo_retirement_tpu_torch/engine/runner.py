@@ -1,19 +1,29 @@
 """Engine: seeds, candidate batching, device placement and result assembly.
 
-Counterpart of the JAX package's ``engine/runner.py`` for one torch device.
-``probe`` pads every candidate batch to ``PROBE_WIDTH`` and runs the probe
-kernel (the plain version on the CPU); above ``max_probe_paths()`` it
-splits the paths into chunks of whole 4096-path blocks by global block
-offset, which draws exactly the shocks of one dispatch, and merges the
-survivor counts. ``run`` is the full-statistics run: the full kernel, then
-the summary reductions on the same device, then the tables and per-path
-vectors to the host; with ``reduced=True`` (the serving path) the per-path
-vectors stay on the device, the dashboard's histograms are reduced there
-too (``ops/stats.serving_bins``), and the tables and bins cross to the host
-in one copy. A float32 run above ``max_device_paths()`` is split into
-chunks of whole blocks (``_run_chunked``): the union of the chunks is the
-unchunked run path for path, and every statistic equals the unchunked
-run's (the per-year tables through ``ops/chunked_quantiles.py``).
+Counterpart of the JAX package's ``engine/runner.py`` for one torch device
+or a paths mesh of several (``parallel/mesh.py``). ``probe`` pads every
+candidate batch to ``PROBE_WIDTH`` and runs the probe kernel (the plain
+version on the CPU); above ``max_probe_paths()`` (per shard) it splits the
+paths into chunks of whole 4096-path blocks by global block offset, which
+draws exactly the shocks of one dispatch, and merges the survivor counts.
+``run`` is the full-statistics run: the full kernel, then the summary
+reductions on the same device, then the tables and per-path vectors to the
+host; with ``reduced=True`` (the serving path) the per-path vectors stay on
+the device, the dashboard's histograms are reduced there too
+(``ops/stats.serving_bins``), and the tables and bins cross to the host in
+one copy. A float32 run above ``max_device_paths()`` is split into chunks
+of whole blocks: the union of the chunks is the unchunked run path for
+path, and every statistic equals the unchunked run's (the per-year tables
+through ``ops/chunked_quantiles.py``, ``_run_banded``).
+
+Over a mesh (``Engine(mesh=...)`` or ``MCRT_MESH=auto``) every launch is
+the sharded one (``engine/sharded.py``). A float32 run treats each shard as
+one resident chunk of the band search: its series stay on its device, the
+counts are summed over shards and processes, and only the seven per-path
+vectors are gathered. A float64 run (the CPU's plain versions, whose
+shards share the host's memory) gathers the shards' outputs and reduces
+them as one run. Either way every field equals the mesh-less run's, and
+every process of a group returns the same result.
 
 Stream seeds and sample rows follow the JAX engine's rules
 (``runner.py:463-470, 654-658``), so both packages pick the same seeds and
@@ -27,7 +37,7 @@ import logging
 import os
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +55,14 @@ from ..ops.chunked_quantiles import BandSearch, bracket_ranks
 from ..ops.quantiles import ceil_stats, count_le, floor_values
 from ..ops.shocks import BLOCK_PATHS
 from ..ops.stats import real_series, serving_bins, summarize, vector_summary
+from ..parallel import distributed
+from ..parallel.mesh import (
+    PathMesh,
+    Shard,
+    local_device_count,
+    make_mesh,
+    mesh_device,
+)
 from ..timing import expected_trajectory_length
 from .cuda_kernel import (
     VECTOR_FIELDS,
@@ -54,6 +72,7 @@ from .cuda_kernel import (
     simulate_full,
     statics_from_config,
 )
+from .sharded import gather_paths, probe_sharded, simulate_full_sharded
 
 log = logging.getLogger("mcrt.engine")
 
@@ -88,7 +107,7 @@ def max_probe_paths() -> int:
 
 def max_device_paths() -> int:
     """Full-statistics paths per launch, in whole 4096-path blocks; a
-    float32 run above it is split into chunks (``Engine._run_chunked``)."""
+    float32 run above it is split into chunks (``Engine._run_banded``)."""
     budget = int(os.environ.get("MCRT_MAX_DEVICE_PATHS",
                                 str(DEFAULT_MAX_DEVICE_PATHS)))
     return max(BLOCK_PATHS, budget // BLOCK_PATHS * BLOCK_PATHS)
@@ -96,6 +115,15 @@ def max_device_paths() -> int:
 
 def _round_up(value: int, multiple: int) -> int:
     return max(multiple, ((value + multiple - 1) // multiple) * multiple)
+
+
+class _Chunk(NamedTuple):
+    """One pass unit of ``Engine._run_banded``: ``paths`` real paths over
+    every process, launched as ``launch`` paths on each local shard."""
+
+    paths: int
+    launch: int
+    shards: Tuple[Shard, ...]
 
 
 @dataclass
@@ -166,6 +194,13 @@ def _fetch(groups):
     return out
 
 
+def _to_host(value):
+    """A tensor, or a tuple of tensors, as numpy."""
+    if isinstance(value, torch.Tensor):
+        return value.cpu().numpy()
+    return [v.cpu().numpy() for v in value]
+
+
 def _host_bins(b: dict) -> HostBins:
     return HostBins(**{name: v if v.ndim else v.item() for name, v in b.items()})
 
@@ -181,11 +216,16 @@ def _host_vectors(vecs) -> dict:
 
 
 class Engine:
-    """Monte Carlo engine for one scenario on one torch device.
+    """Monte Carlo engine for one scenario on one torch device or a mesh.
 
     ``device="cuda"`` runs the CUDA kernels in float32 and raises when no
     card is present; ``device="cpu"`` runs the plain versions (float64 by
-    default).
+    default). ``mesh`` (a ``parallel.mesh.PathMesh`` of the same kind of
+    device) shards every launch's paths over its devices; with
+    ``MCRT_MESH`` set to ``auto``, ``local`` or ``1`` and no mesh passed,
+    the engine takes a mesh over every local device of its kind (the
+    cards, or ``MCRT_LOCAL_DEVICE_COUNT`` CPU shards) when there is more
+    than one — how hosts that build mesh-less engines scale out.
     """
 
     def __init__(
@@ -194,6 +234,7 @@ class Engine:
         main_seed_override: Optional[int] = None,
         dtype=None,
         device="cuda",
+        mesh: Optional[PathMesh] = None,
     ):
         self.config = config.model_copy(deep=True)
         if main_seed_override is not None:
@@ -205,7 +246,13 @@ class Engine:
         else:
             self.main_seed = generate_seed_from_timestamp()
         require_device(device)
-        self.device = torch.device(device)
+        if mesh is None and os.environ.get("MCRT_MESH", "").lower() in (
+                "auto", "local", "1"):
+            auto = make_mesh(None if torch.device(device).type == "cuda"
+                             else ["cpu"] * local_device_count())
+            mesh = auto if auto.size > 1 else None
+        self.device = mesh_device(mesh, device)
+        self.mesh = mesh
         if dtype is None:
             dtype = torch.float32 if self.device.type == "cuda" else torch.float64
         if self.device.type == "cuda" and dtype != torch.float32:
@@ -217,8 +264,9 @@ class Engine:
             self.config, dtype=torch.float64, device=self.device
         )
         log.info(
-            "Engine initialized for scenario '%s' on %s with main seed: %d",
-            self.config.Nickname, self.device, self.main_seed,
+            "Engine initialized for scenario '%s' on %s%s with main seed: %d",
+            self.config.Nickname, self.device,
+            f" (mesh of {mesh.size} shards)" if mesh else "", self.main_seed,
         )
 
     def _t_scan(self, max_working_months: int) -> int:
@@ -234,11 +282,11 @@ class Engine:
         state = np.random.SeedSequence([self.main_seed, idx]).generate_state(1)
         return int(state[0] % (2**31))
 
-    def _pack(self, months, stream: str, block_offset: int = 0):
+    def _pack(self, months, stream: str, block_offset: int = 0, device=None):
         return pack_params(
             self.params, self._stream_seed(stream), months,
             self.retirement_years, block_offset=block_offset,
-            dtype=self.dtype, device=self.device,
+            dtype=self.dtype, device=self.device if device is None else device,
         )
 
     # ------------------------------------------------------------------
@@ -266,30 +314,60 @@ class Engine:
         n_total = int(num_simulations)
         if n_total < 1:
             raise ValueError(f"num_simulations must be >= 1, got {n_total}")
-        budget = max(BLOCK_PATHS, (max_probe_paths() // BLOCK_PATHS) * BLOCK_PATHS)
         t_start = time.perf_counter()
         out: List[float] = []
         for i in range(0, len(months), PROBE_WIDTH):
             chunk = months[i : i + PROBE_WIDTH]
             padded = chunk + [chunk[-1]] * (PROBE_WIDTH - len(chunk))
-            counts = None
-            offset = 0
-            for start in range(0, n_total, budget):
-                cn = min(budget, n_total - start)
-                part = probe_kernel(
-                    self._pack(padded, stream, block_offset=offset),
-                    self.statics, self.retirement_years, cn,
-                ).counts
-                counts = part if counts is None else counts + part
-                offset += -(-cn // BLOCK_PATHS)
+            if self.mesh is None:
+                counts, simulated = self._probe_counts(padded, stream, n_total)
+            else:
+                counts, simulated = self._probe_counts_mesh(padded, stream,
+                                                            n_total)
             # Merge over chunks as exact counts: the path-weighted mean.
-            pct = counts.cpu().numpy().astype(np.float64) / n_total * 100.0
+            pct = counts.astype(np.float64) / simulated * 100.0
             out.extend(float(v) for v in pct[: len(chunk)])
         log.debug(
             "phase=probe device=%s candidates=%d paths=%d: %.3f s",
             self.device, len(months), n_total, time.perf_counter() - t_start,
         )
         return out
+
+    def _probe_counts(self, padded: List[int], stream: str, n_total: int):
+        """Survivors per candidate over exactly ``n_total`` paths, in
+        launches of at most ``max_probe_paths()``."""
+        budget = max(BLOCK_PATHS, (max_probe_paths() // BLOCK_PATHS) * BLOCK_PATHS)
+        counts, offset = None, 0
+        for start in range(0, n_total, budget):
+            cn = min(budget, n_total - start)
+            part = probe_kernel(
+                self._pack(padded, stream, block_offset=offset),
+                self.statics, self.retirement_years, cn,
+            ).counts
+            counts = part if counts is None else counts + part
+            offset += -(-cn // BLOCK_PATHS)
+        return counts.cpu().numpy(), n_total
+
+    def _probe_counts_mesh(self, padded: List[int], stream: str, n_total: int):
+        """Survivors per candidate over every path the mesh simulates (the
+        sharded probe's padded count), in mesh-sized launches of at most
+        ``n_dev * max_probe_paths()`` over contiguous global blocks
+        (``runner.py:549-603``); the merge weighs each launch by its
+        simulated count, which exact counts do by themselves."""
+        n_dev = self.mesh.size
+        unit = n_dev * BLOCK_PATHS
+        budget = max(unit, (n_dev * max_probe_paths() // unit) * unit)
+        counts, simulated = 0, 0
+        for start in range(0, n_total, budget):
+            part = probe_sharded(
+                self.params, self._stream_seed(stream), padded,
+                self.retirement_years, min(budget, n_total - start),
+                self.statics, mesh=self.mesh,
+                block_offset=simulated // BLOCK_PATHS, dtype=self.dtype,
+            )
+            counts = counts + part.counts
+            simulated += part.simulated
+        return counts, simulated
 
     # ------------------------------------------------------------------
     # full run with all statistics
@@ -311,14 +389,23 @@ class Engine:
             np.random.default_rng(self.main_seed).choice(n, size=k, replace=False),
             dtype=torch.int64, device=self.device,
         )
-        if self.dtype == torch.float32 and n > max_device_paths():
-            return self._run_chunked(working_months, n, stream, reduced,
-                                     traj_len, sample_idx)
+        if self.dtype == torch.float32 and (self.mesh is not None
+                                            or n > max_device_paths()):
+            return self._run_banded(working_months, n, stream, reduced,
+                                    traj_len, sample_idx)
         t_start = time.perf_counter()
-        full = simulate_full(
-            self._pack(working_months, stream), self.statics,
-            self.retirement_years, n, traj_len,
-        )
+        if self.mesh is None:
+            full = simulate_full(
+                self._pack(working_months, stream), self.statics,
+                self.retirement_years, n, traj_len,
+            )
+        else:
+            full = simulate_full_sharded(
+                self.params, self._stream_seed(stream), working_months,
+                self.retirement_years, n, traj_len, self.statics,
+                mesh=self.mesh, dtype=self.dtype,
+            )
+            full = {name: v[:n] for name, v in full.items()}
         summary = summarize(full, sample_idx)
         bins = None
         if reduced:
@@ -358,124 +445,188 @@ class Engine:
         )
 
     # ------------------------------------------------------------------
-    # chunked full run (beyond the device's path budget)
+    # banded full run: chunks beyond the device's path budget, mesh shards
     # ------------------------------------------------------------------
-    def _run_chunked(self, working_months: int, n: int, stream: str,
-                     reduced: bool, traj_len: int,
-                     sample_idx: torch.Tensor) -> RunResult:
-        """A full-statistics run in chunks of ``max_device_paths()`` paths
-        (the JAX ``Engine._run_chunked``, ``runner.py:820-1074``).
+    def _chunks(self, n: int) -> Tuple[List[_Chunk], bool]:
+        """The pass units of a banded run and whether they stay resident.
 
-        Chunk c simulates global path blocks [off_c, off_c + ceil(cn/4096))
-        through the full kernel's block offset, so the union of the chunks
-        is the unchunked run path for path, and every statistic equals the
-        unchunked run's: the headline scalars, final-balance percentiles and
-        serving bins from the concatenated per-path vectors; the samples
-        gathered from the chunk that holds each; the per-year tables by the
-        band search of ``ops/chunked_quantiles.py``. The first pass reduces
-        each chunk and brackets every target order statistic (margin
-        ``chunks + 8``); each band round and the ceil pass re-simulate every
-        chunk and count on the device. Each chunk's counts are copied to
-        the host before the next chunk launches, so at most one chunk's
-        series are live at a time.
+        Mesh-less: chunks of ``max_device_paths()`` paths, chunk c on the
+        global blocks from ``start // 4096`` (the JAX ``_run_chunked``,
+        ``runner.py:820-889``), re-simulated on every pass. Over a mesh:
+        one launch of every shard, resident, up to ``n_dev *
+        max_device_paths()`` paths; beyond that mesh-sized chunks whose
+        sizes are multiples of ``n_dev * 4096``, so the global block
+        numbering stays contiguous (``runner.py:853-868``)."""
+        budget = max_device_paths()
+        if self.mesh is None:
+            return [_Chunk(min(budget, n - start), min(budget, n - start),
+                           (Shard(self.device, start, min(budget, n - start),
+                                  start // BLOCK_PATHS),))
+                    for start in range(0, n, budget)], False
+        n_dev = self.mesh.size
+        unit = n_dev * BLOCK_PATHS
+        resident = n <= n_dev * budget
+        step = n if resident else max(unit, (n_dev * budget // unit) * unit)
+        chunks, offset = [], 0
+        for start in range(0, n, step):
+            cn = min(step, n - start)
+            plan = self.mesh.plan(cn, block_offset=offset, start=start)
+            chunks.append(_Chunk(cn, plan.local_pad, plan.shards))
+            offset += plan.simulated // BLOCK_PATHS
+        return chunks, resident
+
+    def _run_banded(self, working_months: int, n: int, stream: str,
+                    reduced: bool, traj_len: int,
+                    sample_idx: torch.Tensor) -> RunResult:
+        """A float32 full-statistics run whose per-year tables come from the
+        band search of ``ops/chunked_quantiles.py`` over pass units
+        (``_chunks``): the chunks of a run beyond the device's path budget
+        (the JAX ``Engine._run_chunked``, ``runner.py:820-1074``) and the
+        shards of a mesh.
+
+        Every unit simulates its global path blocks through the full
+        kernel's block offset, so their union is the unchunked single-device
+        run path for path, and every statistic equals that run's: the
+        headline scalars, final-balance percentiles and serving bins from
+        the per-path vectors, gathered in global order; the samples from the
+        shard that holds each; the per-year tables by the band search. The
+        first pass reduces each shard and brackets every target order
+        statistic (margin: shards + 8); each band round and the ceil pass
+        count on the device where the shard's series lie, then sum over the
+        shards and the processes. A resident unit (a mesh run within
+        ``n_dev * max_device_paths()``) keeps its series on its device
+        between passes; a chunk is re-simulated for each pass and its counts
+        are copied to the host before the next chunk launches, so at most
+        one chunk's series are live at a time.
         """
         t_start = time.perf_counter()
         R = self.retirement_years
-        budget = max_device_paths()
-        # (first path, paths, global block offset) of each chunk
-        chunks = [(start, min(budget, n - start), start // BLOCK_PATHS)
-                  for start in range(0, n, budget)]
+        dev = self.device
+        chunks, resident = self._chunks(n)
         qs = [np.asarray(TRAJECTORY_PERCENTILES, np.float32)] * 2 + [
             np.asarray(WITHDRAWAL_RATE_PERCENTILES, np.float32)]
         t_sim = 0.0
         launches = 0
 
-        def simulate(c):
-            """Chunk c's full outputs and its three (n, C) tables with
-            their masks: trajectory, real trajectory, withdrawal rate."""
+        def simulate(chunk):
+            """The chunk's shards launched (all before any read): each
+            shard's full outputs, and for a shard with real paths its three
+            (paths, C) tables with their masks: trajectory, real trajectory,
+            withdrawal rate."""
             nonlocal t_sim, launches
             t0 = time.perf_counter()
-            _, cn, off = chunks[c]
-            full = simulate_full(
-                self._pack(working_months, stream, block_offset=off),
-                self.statics, R, cn, traj_len,
-            )
-            wr = full["withdrawal_rates"]
-            tables = [(full["trajectory"], None),
-                      (real_series(full["trajectory"], full["price_levels"]),
-                       None),
-                      (wr, ~torch.isnan(wr))]
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            outs = [(s, simulate_full(
+                self._pack(working_months, stream, s.block_offset, s.device),
+                self.statics, R, chunk.launch, traj_len)) for s in chunk.shards]
+            parts = []
+            for s, full in outs:
+                if s.paths:
+                    p = s.paths
+                    traj, wr = full["trajectory"][:p], full["withdrawal_rates"][:p]
+                    parts.append((s, [
+                        (traj, None),
+                        (real_series(traj, full["price_levels"][:p]), None),
+                        (wr, ~torch.isnan(wr))]))
+            for d in {s.device for s in chunk.shards if s.device.type == "cuda"}:
+                torch.cuda.synchronize(d)
             t_sim += time.perf_counter() - t0
-            launches += 1
-            return full, tables
+            launches += len(outs)
+            return outs, parts
 
         k = sample_idx.shape[0]
-        samples = [torch.zeros((k, traj_len), dtype=self.dtype,
-                               device=self.device) for _ in range(2)]
-        margin = len(chunks) + 8
-        vec_parts, wr_counts, brk_lo, brk_hi = [], 0, None, None
-        for c, (start, cn, _) in enumerate(chunks):
-            full, tables = simulate(c)
-            vec_parts.append({name: full[name] for name in VECTOR_FIELDS})
-            local = sample_idx - start
-            rows = torch.clamp(local, 0, cn - 1)
-            inside = ((local >= 0) & (local < cn))[:, None]
-            for i in range(2):
-                samples[i] = torch.where(inside, tables[i][0][rows], samples[i])
-            cnt_c = tables[2][1].sum(dim=0).cpu().numpy()
-            wr_counts = wr_counts + cnt_c
-            lo_vals, hi_vals = [], []
-            for (x, valid), q, nv in zip(
-                    tables, qs, [np.full(traj_len, cn)] * 2 + [cnt_c]):
-                lo_r, hi_r = bracket_ranks(q, nv, margin)
-                both = floor_values(
-                    x, np.concatenate([lo_r, hi_r], axis=1), valid
-                ).cpu().numpy()
-                # An empty column counts nothing: its statistics stay out.
-                empty = (nv == 0)[:, None]
-                lo_vals.append(np.where(empty, np.inf, both[:, :len(q)]))
-                hi_vals.append(np.where(empty, -np.inf, both[:, len(q):]))
-            if brk_lo is None:
-                brk_lo, brk_hi = lo_vals, hi_vals
-            else:
-                brk_lo = [np.minimum(a, b) for a, b in zip(brk_lo, lo_vals)]
-                brk_hi = [np.maximum(a, b) for a, b in zip(brk_hi, hi_vals)]
-            del full, tables
+        samples = [torch.zeros((k, traj_len), dtype=self.dtype, device=dev)
+                   for _ in range(2)]
+        owned = torch.zeros(k, dtype=torch.bool, device=dev)
+        margin = len(chunks) * (self.mesh.size if self.mesh else 1) + 8
+        cols = [traj_len, traj_len, R]
+        brk_lo = [np.full((c, len(q)), np.inf, np.float32)
+                  for c, q in zip(cols, qs)]
+        brk_hi = [np.full((c, len(q)), -np.inf, np.float32)
+                  for c, q in zip(cols, qs)]
+        wr_counts = np.zeros(R, dtype=np.int64)
+        vec_parts, kept = [], []
+        for chunk in chunks:
+            outs, parts = simulate(chunk)
+            vec_parts.append({
+                name: self._gather([full[name] for _, full in outs])[:chunk.paths]
+                for name in VECTOR_FIELDS})
+            for s, tables in parts:
+                local = sample_idx.to(s.device) - s.start
+                rows = torch.clamp(local, 0, s.paths - 1)
+                inside = ((local >= 0) & (local < s.paths)).to(dev)
+                owned |= inside
+                for i in range(2):
+                    samples[i] = torch.where(
+                        inside[:, None], tables[i][0][rows].to(dev), samples[i])
+                cnt_s = tables[2][1].sum(dim=0).cpu().numpy()
+                wr_counts += cnt_s
+                for i, ((x, valid), q, nv) in enumerate(zip(
+                        tables, qs, [np.full(traj_len, s.paths)] * 2 + [cnt_s])):
+                    lo_r, hi_r = bracket_ranks(q, nv, margin)
+                    both = floor_values(
+                        x, np.concatenate([lo_r, hi_r], axis=1), valid
+                    ).cpu().numpy()
+                    # An empty column counts nothing: its statistics stay out.
+                    empty = (nv == 0)[:, None]
+                    brk_lo[i] = np.minimum(brk_lo[i], np.where(
+                        empty, np.float32(np.inf), both[:, :len(q)]))
+                    brk_hi[i] = np.maximum(brk_hi[i], np.where(
+                        empty, np.float32(-np.inf), both[:, len(q):]))
+            kept.append(parts if resident else None)
+            del outs, parts
 
+        wr_counts = self._reduce(wr_counts)
+        brk_lo = [self._reduce(b, "min") for b in brk_lo]
+        brk_hi = [self._reduce(b, "max") for b in brk_hi]
+        samples = self._gather_samples(samples, owned)
         all_paths = np.full(traj_len, n, dtype=np.int64)
         search = BandSearch(qs, [all_paths, all_paths, wr_counts],
                             edges_per_rank=BAND_EDGES)
         search.seed_intervals(brk_lo, brk_hi)
 
-        def accumulate(count, merge):
-            """One pass over the chunks: ``count(x, valid, i)`` per table
-            on the device, merged on the host by ``merge(acc, part)``."""
-            acc = None
-            for c in range(len(chunks)):
-                _, tables = simulate(c)
-                part = [count(x, valid, i)
-                        for i, (x, valid) in enumerate(tables)]
-                acc = part if acc is None else [merge(a, p)
-                                                for a, p in zip(acc, part)]
-                del tables
+        def accumulate(count, acc, merge):
+            """One pass over the units: ``count(x, valid, i)`` per table,
+            launched on every shard of a unit before its results are copied
+            to the host and merged into ``acc`` by ``merge(acc, part)``."""
+            for c, chunk in enumerate(chunks):
+                parts = kept[c] if resident else simulate(chunk)[1]
+                launched = [[count(x, valid, i)
+                             for i, (x, valid) in enumerate(tables)]
+                            for _, tables in parts]
+                for shard in launched:
+                    acc = [merge(a, _to_host(p)) for a, p in zip(acc, shard)]
+                del parts, launched
             return acc
 
+        on_device = {}
+
+        def placed(values, device):
+            """``values`` (host arrays, one per table) on ``device``, once
+            per pass."""
+            if device not in on_device:
+                on_device[device] = [torch.as_tensor(v, device=device)
+                                     for v in values]
+            return on_device[device]
+
         while not search.resolved:
-            edges = [torch.as_tensor(e, device=self.device)
-                     for e in search.edges()]
-            search.update(accumulate(
-                lambda x, valid, i: count_le(x, edges[i], valid).cpu().numpy(),
-                np.add))
-        v_lo = [torch.as_tensor(v, device=self.device)
-                for v in search.floor_values()]
+            edges = search.edges()
+            on_device.clear()
+            totals = accumulate(
+                lambda x, valid, i: count_le(x, placed(edges, x.device)[i],
+                                             valid),
+                [np.zeros(e.shape, dtype=np.int64) for e in edges], np.add)
+            search.update([self._reduce(t) for t in totals])
+        v_lo = search.floor_values()
+        on_device.clear()
         ceil = accumulate(
-            lambda x, valid, i: [t.cpu().numpy()
-                                 for t in ceil_stats(x, v_lo[i], valid)],
+            lambda x, valid, i: ceil_stats(x, placed(v_lo, x.device)[i], valid),
+            [[np.zeros(v.shape, dtype=np.int64),
+              np.full(v.shape, np.inf, np.float32)] for v in v_lo],
             lambda a, p: [a[0] + p[0], np.minimum(a[1], p[1])])
         traj_pcts, real_pcts, wr_pcts = search.interpolate(
-            [c[0] for c in ceil], [c[1] for c in ceil])
+            [self._reduce(c[0]) for c in ceil],
+            [self._reduce(c[1], "min") for c in ceil])
+        del kept
 
         vecs = {name: torch.cat([p[name] for p in vec_parts])
                 for name in VECTOR_FIELDS}
@@ -502,18 +653,46 @@ class Engine:
                  real_trajectory_percentiles=real_pcts,
                  wr_percentiles=wr_pcts, wr_observation_counts=wr_counts)
         wall = time.perf_counter() - t_start
-        stats = {"chunks": len(chunks), "band_passes": search.rounds + 1,
+        stats = {"chunks": len(chunks), "resident": resident,
+                 "shards": self.mesh.size if self.mesh else 1,
+                 "band_passes": search.rounds + 1,
                  "full_launches": launches, "wall_s": wall,
                  "simulation_s": t_sim, "count_s": wall - t_sim}
         log.info(
             "phase=final_run device=%s paths=%d months=%d reduced=%s "
-            "chunks=%d band_passes=%d full_launches=%d: %.3f s "
+            "chunks=%d shards=%d band_passes=%d full_launches=%d: %.3f s "
             "(simulation %.3f s)",
             self.device, n, working_months, reduced, len(chunks),
-            stats["band_passes"], launches, wall, t_sim,
+            stats["shards"], stats["band_passes"], launches, wall, t_sim,
             extra={"chunked": stats},
         )
         return self._result(working_months, n, host, s, bins)
+
+    def _gather(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """Local shards' per-path vectors joined on this engine's device in
+        global order, over the processes of the mesh's group."""
+        if self.mesh is None:
+            return torch.cat(parts)
+        return gather_paths(parts, self.mesh)
+
+    def _reduce(self, arr: np.ndarray, op: str = "sum") -> np.ndarray:
+        """A host array reduced over the processes of the mesh's group."""
+        if self.mesh is None or not self.mesh.grouped:
+            return arr
+        return distributed.all_reduce(
+            torch.from_numpy(np.ascontiguousarray(arr)), op).numpy()
+
+    def _gather_samples(self, samples: List[torch.Tensor],
+                        owned: torch.Tensor) -> List[torch.Tensor]:
+        """Each sample row from the process whose shard holds it."""
+        if self.mesh is None or not self.mesh.grouped:
+            return samples
+        rows = distributed.all_gather(torch.cat(samples, dim=1))
+        owners = distributed.all_gather(owned.to(torch.uint8))
+        pick = torch.stack(owners).argmax(dim=0)
+        both = torch.stack(rows)[pick, torch.arange(owned.shape[0],
+                                                    device=owned.device)]
+        return list(both.split(samples[0].shape[1], dim=1))
 
     # ------------------------------------------------------------------
     # single-path inspection (tests / debugging)

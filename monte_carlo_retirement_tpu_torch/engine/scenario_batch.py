@@ -1,23 +1,28 @@
-"""The scenario grid: a batch of configs as chunked launches of one kernel.
+"""Scenario batches: configs as launches of the grid kernel.
 
-Counterpart of the JAX package's ``engine/scenario_batch.py`` for its grid
-path (``run_scenario_grid``, lines 255-392). A grid is K configs that share
+Counterpart of the JAX package's ``engine/scenario_batch.py``.
+
+``run_scenario_grid`` (JAX lines 255-392): a grid is K configs that share
 their compile-time ``Statics`` and ``retirement_years``; their parameters
-are stacked (``models.retirement.stack_params``) into one (K, F.NUM + 5*S)
-block, one row per scenario (``cuda_kernel.pack_grid``), and each chunk of
-rows is one launch of the grid kernel (``cuda_kernel.grid``; its plain
-version on the CPU). Shocks depend only on (stream seed, path block, month,
-lane), never on the row, so the whole grid shares them (common random
-numbers) and chunking never changes a result.
+are stacked (``stack_params``) into one (K, F.NUM + 5*S) block, one row per
+scenario (``cuda_kernel.pack_grid``), and each chunk of rows is one launch
+of the grid kernel (``cuda_kernel.grid``; its plain version on the CPU), or
+with ``mesh=`` one sharded launch (``engine/sharded.grid_raw_sharded``).
+Shocks depend only on (stream seed, path block, month, lane), never on the
+row, so the whole grid shares them (common random numbers) and chunking
+never changes a result. After each launch the per-scenario statistics
+(``_grid_stats``) are reduced on the device and only a (K, 9) table leaves
+it. Launches are asynchronous on the card, so the host packs and launches
+chunk i+1 before it copies chunk i's table back (an in-flight window of
+``MCRT_GRID_WINDOW`` chunks).
 
-After each launch the per-scenario statistics (``_grid_stats``) are reduced
-on the same device and only a (K, 9) table leaves it. Launches are
-asynchronous on the card, so the host packs and launches chunk i+1 before
-it copies chunk i's table back (an in-flight window of ``MCRT_GRID_WINDOW``
-chunks).
-
-Not here yet: ``run_scenario_batch``, the JAX package's path for mixed-
-Statics batches (ROADMAP.md item A9).
+``run_scenario_batch`` (JAX lines 74-161) takes a batch whose rows may mix
+tax systems, crashes and longevity: JAX runs it on its scan engine, which
+keeps that structure as per-row data. The port has no scan engine, so it
+groups the rows by ``Statics`` and launches each group on its own build of
+the grid kernel. The draws depend only on (seed, block, month, lane), and a
+disabled feature compiles out without moving them, so the groups share
+their shocks as one launch's rows would.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 from ..config import Config
 from ..models.retirement import stack_params
 from ..ops.quantiles import exact_quantiles
+from ..parallel.mesh import PathMesh, mesh_device
 from .cuda_kernel import (
     Statics,
     check_grid_statics,
@@ -41,6 +47,16 @@ from .cuda_kernel import (
     require_device,
     statics_from_config,
 )
+from .sharded import grid_raw_sharded
+
+__all__ = [
+    "GRID_FINAL_PERCENTILES",
+    "ScenarioBatchResult",
+    "grid_statics",
+    "run_scenario_batch",
+    "run_scenario_grid",
+    "stack_params",
+]
 
 log = logging.getLogger("mcrt.grid")
 
@@ -126,6 +142,7 @@ def run_scenario_grid(
     seed: int = 0,
     chunk_size: Optional[int] = None,
     device="cuda",
+    mesh: Optional[PathMesh] = None,
     progress_callback: Optional[Callable[[dict], None]] = None,
 ) -> ScenarioBatchResult:
     """Serve a whole scenario grid: chunked launches + progress.
@@ -133,9 +150,12 @@ def run_scenario_grid(
     Chunks of ``chunk_size`` scenarios (default ``MCRT_GRID_CHUNK``, 16)
     run as one launch each of the grid kernel on ``device="cuda"`` (float32;
     raises without a card) or of its plain version on ``device="cpu"``
-    (float64). ``progress_callback`` receives a ``grid_chunk`` event
-    (``done``, ``total``, ``elapsed_s``) after each chunk is collected.
-    Shocks are shared across the WHOLE grid, so chunking preserves CRN.
+    (float64); with ``mesh`` (of ``device``'s kind) as one sharded launch
+    over its shards, the statistics then reduced over the first
+    ``num_simulations`` paths on the mesh's first device.
+    ``progress_callback`` receives a ``grid_chunk`` event (``done``,
+    ``total``, ``elapsed_s``) after each chunk is collected. Shocks are
+    shared across the WHOLE grid, so chunking preserves CRN.
     """
     configs = list(configs)
     working_months = [int(m) for m in working_months]
@@ -146,8 +166,7 @@ def run_scenario_grid(
     if any(m < 0 for m in working_months):
         raise ValueError("working_months must be >= 0")
     statics = grid_statics(configs)  # raises on mixed structure
-    require_device(device)
-    device = torch.device(device)
+    device = mesh_device(mesh, device)
     dtype = torch.float32 if device.type == "cuda" else torch.float64
     R = configs[0].retirement_years
     n = int(num_simulations)
@@ -196,15 +215,20 @@ def run_scenario_grid(
         chunk_cfgs = configs[i : i + chunk_size]
         params = stack_params(chunk_cfgs)
         check_grid_statics(params, statics)
-        packed = pack_grid(
-            params, stream_seed, working_months[i : i + chunk_size], R,
-            dtype=dtype, device=device,
-        )
-        out = grid(packed, statics, R, n)
+        months = working_months[i : i + chunk_size]
+        if mesh is None:
+            out = grid(pack_grid(params, stream_seed, months, R, dtype=dtype,
+                                 device=device), statics, R, n)
+            succ, fin = out.success, out.final_balance
+        else:
+            out = grid_raw_sharded(params, stream_seed, months, R, n, statics,
+                                   mesh=mesh, dtype=dtype)
+            # The first n paths as the (k, n) table a mesh-less launch
+            # gives, so the reductions see the same layout.
+            succ = out.success[:, :n].contiguous()
+            fin = out.final_balance[:, :n].contiguous()
         pending.append(
-            (len(chunk_cfgs),
-             _stats_table(_grid_stats(out.success, out.final_balance, n)))
-        )
+            (len(chunk_cfgs), _stats_table(_grid_stats(succ, fin, n))))
         while len(pending) > window:
             collect_one()
     while pending:
@@ -213,3 +237,67 @@ def run_scenario_grid(
     for part in parts[1:]:
         result = result.concat(part)
     return result
+
+
+def run_scenario_batch(
+    configs: Sequence[Config],
+    working_months: Sequence[int],
+    num_simulations: int,
+    seed: int = 0,
+    t_scan: Optional[int] = None,
+    device="cuda",
+) -> ScenarioBatchResult:
+    """Simulate every (config, working_months) pair on the grid's shared
+    shocks; the rows may mix tax systems, crashes and longevity.
+
+    The JAX package's rules hold: ``working_months`` is per scenario, the
+    configs share ``retirement_years`` and their pruned income-stream count
+    (``stack_params``), and a batch may not mix ``antithetic`` (the
+    sampling mode pairs blocks). ``t_scan`` sizes the JAX scan; here it is
+    only checked against the longest horizon. Each group of rows that
+    shares its ``Statics`` is one launch of that Statics' grid kernel (its
+    plain version on the CPU); the results come back in the caller's order,
+    each row equal to the same row run alone through
+    :func:`run_scenario_grid`.
+    """
+    configs = list(configs)
+    if len(working_months) != len(configs):
+        raise ValueError("working_months must align with configs")
+    months = [int(m) for m in working_months]
+    stack_params(configs)  # shared retirement_years and stream count
+    R = int(configs[0].retirement_years)
+    horizon = max(months) + 12 * R
+    if (t_scan or horizon) < horizon:
+        raise ValueError("t_scan below the longest scenario horizon")
+    if len({bool(c.antithetic) for c in configs}) != 1:
+        raise ValueError(
+            "all configs in a scenario batch must share 'antithetic' "
+            "(sampling mode is compile-time structure)"
+        )
+    n = int(num_simulations)
+    if n < 1:
+        raise ValueError(f"num_simulations must be >= 1, got {n}")
+    require_device(device)
+    device = torch.device(device)
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    stream_seed = _grid_stream_seed(seed)
+    groups: dict = {}
+    for i, cfg in enumerate(configs):
+        groups.setdefault(statics_from_config(cfg), []).append(i)
+    launched = []
+    for statics, rows in groups.items():
+        params = stack_params([configs[i] for i in rows])
+        out = grid(pack_grid(params, stream_seed, [months[i] for i in rows], R,
+                             dtype=dtype, device=device), statics, R, n)
+        launched.append((rows, out))
+    table = np.empty((len(configs), 4 + len(GRID_FINAL_PERCENTILES)))
+    for rows, out in launched:
+        # Row by row: each row's reductions see the (1, n) table that row
+        # alone would give.
+        for j, i in enumerate(rows):
+            table[i] = _stats_table(_grid_stats(
+                out.success[j:j + 1], out.final_balance[j:j + 1], n)
+            ).cpu().numpy()[0]
+    log.info("phase=batch device=%s scenarios=%d groups=%d paths=%d",
+             device, len(configs), len(groups), n)
+    return _from_table(table)

@@ -244,9 +244,11 @@ def sensitivity_fd(
     rel_step: float = 0.02,
     abs_step: float = 0.005,
     device="cuda",
+    mesh=None,
     progress_callback=None,
 ) -> List[SensitivityRow]:
-    """Central finite differences over a CRN scenario grid on ``device``.
+    """Central finite differences over a CRN scenario grid on ``device``
+    (over ``mesh``'s shards when given, as ``run_scenario_grid`` takes it).
 
     One grid request of ``1 + 2K`` rows (base + theta +/- h per parameter;
     boundary-pinned parameters probe one-sided). Derivatives use the actual
@@ -312,6 +314,7 @@ def sensitivity_fd(
         n,
         seed=seed,
         device=device,
+        mesh=mesh,
         progress_callback=progress_callback,
     )
 

@@ -3,7 +3,7 @@ bisection driven from the host.
 
 The port's copy of the JAX package's ``ops/chunked_quantiles.py`` (which
 imports only numpy; the port imports nothing of the JAX package). The
-chunked runner (``engine/runner.py::Engine._run_chunked``) simulates a run
+chunked runner (``engine/runner.py::Engine._run_banded``) simulates a run
 larger than the device's path budget in chunks and must reduce the per-year
 percentile tables over ALL paths while holding one chunk's yearly series at
 a time. Quantile selection needs only ``count(x <= v)``, which is additive
