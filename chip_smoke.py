@@ -129,12 +129,32 @@ result):
      to (b)'s and each shard's final balances to the single-device run's;
      (d) run_scenario_batch over three Statics in 3 grid launches, each row
      equal to the row alone. Walls through utils.profiling.device_timer.
+ 13. the tools of hosts/ on the card: the month-loop libraries of the
+     edge sweep's and the campaign's Statics built together (count and
+     wall); (a) hosts/edge_sweep.py: each of its 14 edge scenarios through
+     Engine (probe [0, 7, 24] and run(7) at 4096 paths, counted: finite
+     and in range), then its probe, grid and full kernels against their
+     float64 plain versions at its month (hosts/fuzz.check_kernels:
+     gate (b) per run, paths beyond the $1e9 conditioning bound skipped
+     and counted; the $1e12 balance against the float32 plain versions);
+     (b) hosts/fuzz.py's campaign, 48 random scenarios at seed 0, each
+     kernel against its float64 plain version at 4096 paths: clean, every
+     extension in at least 3 trials, the worst flag mismatch and q999
+     final-balance error per kernel and the paths skipped; (c)
+     hosts/bench.py in its own process: its JSON line's keys, its
+     simulate time within 10% of phase 6's, its success rate in [0, 100];
+     (d) hosts/scenario_grid_demo.py at seed 2026 and 1M paths: its
+     success grid equal to phase 6's run_scenario_grid bit for bit and to
+     phase 8a's payload at its two decimals; hosts/correlation_sweep.py:
+     its 9 rows in one grid launch, each equal to the row alone; (e) the
+     README's library snippet on the card. Launches of (a), (d) and (e)
+     are counted; the campaign's and the checks' are comparisons.
 
 The kernels' line comes before the last two: {"kernels": [...]}, one row
 per kernel with its launches on the main path (phase 5), the grid path
 (phase 8), the server's routes (phase 10a-d), the chunked runs (phase
-11) and the paths mesh (phase 12), its time, bound and plain version's
-time; then the card's
+11), the paths mesh (phase 12) and the tools (phase 13a, d, e), its
+time, bound and plain version's time; then the card's
 name and power limit on their own line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -163,12 +183,7 @@ N_FULL = 1_000_000
 GRID_W = 231
 GRID_SIDE = 16  # the 16 x 16 grid of scripts/scenario_grid_demo.py
 GRID_CHUNK_ROW = 10  # the chunk of the grid checked and timed (expenses ~10.7k)
-PROBE_TOL_PTS = 0.3
-FLAG_MISMATCH = 3e-3
 NORMAL_RTOL = 2e-6
-FIELD_RTOL = 5e-3  # the JAX suite's q999 bound: < 1e-3 of entries beyond it
-PATH_SHARE = 1e-3  # share of paths whose flag / ruin month / NaN may differ
-ONE_MONTH_YEARS = 1.0 / 12.0
 SERVER_REPEATS = 5  # warm /api/simulate requests timed in phase 10e
 # Phase 10a's float fields: the card interpolates percentiles and means in
 # float32, pandas in float64 (relative), and the wire rounds to cents.
@@ -227,6 +242,12 @@ N_12A = 2**20  # bench.py's paths
 N_12_CHUNKED = 2 * MESH_SHARDS * 2**16
 BUDGET_12_CHUNKED = 2**16
 CHILD_TIMEOUT_S = 300  # each process of phase 12c
+FUZZ_SEED = 0  # phase 13b's campaign
+FUZZ_TRIALS = 48
+FUZZ_MIN_EACH = 3  # trials per extension the campaign must reach
+BENCH_SIM_RTOL = 0.10  # hosts/bench.py's simulate time vs phase 6's
+BENCH_KEYS = {"metric", "value", "unit", "success_rate_pct", "full_stats_ms",
+              "card_name", "power_limit"}
 
 
 def _card_line() -> str:
@@ -269,11 +290,6 @@ def _run_statics():
     configs = [_config()] + [_config(**dict(over)) for over in EXTENSIONS.values()]
     configs.append(_config(**dict(ALL_ON)))
     return list(dict.fromkeys(statics_from_config(c) for c in configs))
-
-
-def _few(bad: int, total: int, share: float = PATH_SHARE) -> bool:
-    """At most ``share`` of ``total``, or a single one at small sizes."""
-    return bad < share * total or bad <= 1
 
 
 def _grid_raw():
@@ -383,12 +399,12 @@ def phase_build(report):
     counted = {"slice": ck.statics_from_config(_config()),
                "all-on": ck.statics_from_config(_config(**dict(ALL_ON)))}
     t0 = time.perf_counter()
-    paths = _build.build_many(statics + [None], list(counted.values()))
+    paths, built = _build.build_many(statics + [None], list(counted.values()))
     for st in statics:
         _build.load(st)
     _build.load()
     took = time.perf_counter() - t0
-    print(f"[1] {len(paths)} libraries and op-count cubins built from "
+    print(f"[1] {built} of {len(paths)} libraries and op-count cubins built from "
           f"{os.path.dirname(CU_SOURCE)} (one nvcc each, started together) into "
           f"{os.path.relpath(os.path.dirname(paths[0]), REPO)} in {took:.1f} s")
     report["ptxas"] = {}
@@ -470,35 +486,40 @@ def phase_normals(report):
     report["normals_max_rel"] = rel
 
 
+def _gate(stats) -> str:
+    """Gate (b)'s stats (``hosts/fuzz.compare_rows`` or ``compare_full``)
+    on one line."""
+    def shown(v):
+        if isinstance(v, dict):
+            return "{" + ", ".join(f"{k} {shown(x)}" for k, x in v.items()) + "}"
+        return f"{v:.2e}" if isinstance(v, float) else str(v)
+
+    return ", ".join(f"{k} {shown(v)}" for k, v in stats.items())
+
+
 def _compare_rows(tag, what, out_k, out_p, n, label):
     """A probe or grid kernel's (K, n) outputs vs its plain version's on the
-    same block; returns the largest |success % difference|."""
+    same block, by gate (b) on every path (``fuzz.compare_rows``: counts =
+    the kernel's own flags, i.e. the ballot and atomic saw exactly the n
+    real paths); returns the largest |success % difference|."""
     import numpy as np
     import torch
+    from monte_carlo_retirement_tpu_torch.hosts import fuzz
 
-    flags_k, flags_p = out_k.success > 0.5, out_p.success > 0.5
-    # The ballot + atomic count must see exactly the n real paths.
-    if not torch.equal(out_k.counts, flags_k.sum(dim=1)):
-        raise AssertionError(
-            f"[{tag}] {what} counts {out_k.counts.tolist()} differ from "
-            f"its own flags {flags_k.sum(dim=1).tolist()}")
+    stats = fuzz.compare_rows(out_k, out_p, torch.ones(n, dtype=torch.bool,
+                                                       device=out_k.success.device))
     pk = out_k.counts.double().cpu().numpy() / n * 100
     pp = out_p.counts.double().cpu().numpy() / n * 100
-    err = float(np.abs(pk - pp).max())
-    tol = max(PROBE_TOL_PTS, 100.0 / n)  # one path's flag at small n
-    flags = float((flags_k != flags_p).double().mean())
-    diff = (out_k.final_balance - out_p.final_balance).abs()
-    rel = diff / out_p.final_balance.abs().clamp_min(1.0)
-    dusty = float(((rel > FIELD_RTOL) & (diff > 5.0)).double().mean())
     print(f"[{tag}] {what} vs plain, {n:,} paths, {label}:")
     print(f"[{tag}]   kernel success % {np.round(pk, 3).tolist()}")
     print(f"[{tag}]   plain  success % {np.round(pp, 3).tolist()}")
-    print(f"[{tag}]   max |d success| {err:.4f} pts (bound {tol:.3f}); flag "
-          f"mismatch {flags:.2e} (bound {FLAG_MISMATCH:g}); finals off >0.5% "
-          f"and >$5: {dusty:.2e} (bound 1e-3)")
-    if not (err <= tol and flags < FLAG_MISMATCH and dusty <= 1e-3):
+    print(f"[{tag}]   gate (b), worst row (bounds: d_success "
+          f"{max(fuzz.PROBE_TOL_PTS, 100.0 / n):.3f} pts, flags < "
+          f"{fuzz.FLAG_MISMATCH:g}, finals off >0.5% and >$5 < "
+          f"{fuzz.PATH_SHARE:g}): {_gate(stats)}")
+    if not stats["ok"]:
         raise AssertionError(f"[{tag}] {what} disagrees with its plain version")
-    return err
+    return stats["d_success"]
 
 
 def check_probe(report, tag, eng, months, n):
@@ -560,9 +581,11 @@ def check_grid(report, tag, configs, months, n):
 
 def check_full(report, tag, eng, W, n):
     """full_kernel vs simulate_full_plain at working months ``W``, ``n``
-    paths, with the series as wide as Engine.run makes them."""
+    paths, with the series as wide as Engine.run makes them, by gate (b)
+    on every path without its $5 dust allowance (``fuzz.compare_full``)."""
     import torch
     from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.hosts import fuzz
 
     L = 1 + eng._t_scan(W) // 12
     R = eng.retirement_years
@@ -570,54 +593,16 @@ def check_full(report, tag, eng, W, n):
     k = ck.simulate_full(packed, eng.statics, R, n, L)
     p = ck.simulate_full_plain(packed, eng.statics, R, n, L)
     torch.cuda.synchronize()
-
-    def beyond(name):
-        a, b = k[name], p[name]
-        rel = (a - b).abs() / b.abs().clamp_min(1.0)
-        return int((rel > FIELD_RTOL).sum()), rel.numel(), float(rel.max())
-
-    flips = int(((k["success"] > 0.5) != (p["success"] > 0.5)).sum())
-    fields = {name: beyond(name) for name in (
-        "final_balance", "start_balance", "first_year_gross",
-        "first_year_real_gross", "inflation_at_retirement", "trajectory",
-        "price_levels")}
-    ytr_k, ytr_p = k["years_to_ruin"], p["years_to_ruin"]
-    nan_flips = int((ytr_k.isnan() != ytr_p.isnan()).sum())
-    both = ~ytr_k.isnan() & ~ytr_p.isnan()
-    ytr_diff = (ytr_k[both] - ytr_p[both]).abs()
-    ytr_err = float(ytr_diff.max()) if both.any() else 0.0
-    # A ruin month may move by one at the f32 funding-failure boundary,
-    # on few paths, and by no more than that month.
-    ytr_moved = int((ytr_diff > 1e-5).sum())
-    wr_k, wr_p = k["withdrawal_rates"], p["withdrawal_rates"]
-    wr_nan = int((wr_k.isnan() != wr_p.isnan()).sum())
-    ok = ~wr_k.isnan() & ~wr_p.isnan()
-    wr_abs = (wr_k[ok] - wr_p[ok]).abs()
-    wr_bad = int((wr_abs > 1e-4 + FIELD_RTOL * wr_p[ok].abs()).sum())
-    wr_err = float(wr_abs.max()) if ok.any() else 0.0
-    print(f"[{tag}] full kernel vs plain at W={W}, {n:,} paths, L={L}, R={R}: "
-          f"success flags differing {flips}")
-    print(f"[{tag}]   entries beyond rel err {FIELD_RTOL:g} (bound < 1e-3 of "
-          "them, i.e. q999 below it) / max rel err: "
-          + ", ".join(f"{nm} {b}/{t} {m:.2e}" for nm, (b, t, m) in fields.items()))
-    print(f"[{tag}]   years_to_ruin NaN flips {nan_flips}, ruin months moved "
-          f"{ytr_moved}, max abs err {ytr_err:.4e} y (bound 1/12 y + 1e-5)")
-    # Guardrails cut or raise spending when the year-start WR crosses a
-    # band: a path within round-off of a band takes the other branch in one
-    # version and spends gr_adj more or less from then on, so its later WR
-    # entries differ by percents. Those paths are few; without guardrails
-    # every entry must agree.
-    wr_ok = _few(wr_bad, wr_k.numel()) if eng.statics.guardrails else wr_bad == 0
-    print(f"[{tag}]   WR NaN flips {wr_nan}, max abs err {wr_err:.3e} pts, "
-          f"{wr_bad} entries beyond rtol {FIELD_RTOL:g} (bound "
-          f"{'< 1e-3 of them' if eng.statics.guardrails else 'none'})")
-    if not (_few(flips, n)
-            and all(_few(b, t) for b, t, _ in fields.values())
-            and _few(nan_flips, n) and _few(ytr_moved, n)
-            and ytr_err <= ONE_MONTH_YEARS + 1e-5
-            and _few(wr_nan, wr_k.numel()) and wr_ok):
+    every = torch.ones(n, dtype=torch.bool, device=k["success"].device)
+    stats = fuzz.compare_full(k, p, every, eng.statics.guardrails, dust=False)
+    print(f"[{tag}] full kernel vs plain at W={W}, {n:,} paths, L={L}, R={R}, gate "
+          f"(b) (bounds: shares < {fuzz.PATH_SHARE:g}, ruin months within 1/12 y + "
+          f"1e-5, WR beyond 1e-4 + {fuzz.FIELD_RTOL:g} relative on "
+          f"{'< 1e-3 of the entries' if eng.statics.guardrails else 'none'}): "
+          f"{_gate(stats)}")
+    if not stats["ok"]:
         raise AssertionError(f"[{tag}] full kernel disagrees with its plain version")
-    report["full_err"] = max(report.get("full_err", 0.0), wr_err)
+    report["full_err"] = max(report.get("full_err", 0.0), stats["wr_err"])
 
 
 def phase_probe(report):
@@ -872,6 +857,7 @@ def phase_timings(report):
                                 seed=SEED, device="cuda")
         walls.append((time.perf_counter() - t0) * 1e3)
     times["grid_256_wall"] = walls[-1]
+    report["grid_256"] = res.success_probability
     per_chunk = times["grid"] + times["grid_stats"]
     print(f"[6] scenario grid, config.json x 16 rows (expenses "
           f"{configs[0].monthly_expenses:,.0f}), W={GRID_W}, R={GR}, 1M paths "
@@ -959,6 +945,7 @@ def phase_modes(report):
         raise AssertionError(f"[8a] expected 16 grid launches, got {ran}")
     succ = np.array([r["success_probability"] for r in payload["rows"]])
     table = succ.reshape(GRID_SIDE, GRID_SIDE)  # rows: expenses, cols: eq mean
+    report["grid_8a"] = table
     if not (np.diff(table, axis=0) <= 0).all():
         raise AssertionError("[8a] success rose with expenses in some column")
     print("[8a] 256 x 1M grid, success % (rows: expenses 4,000 -> 14,000; "
@@ -2040,6 +2027,155 @@ def phase_mesh(report):
     print(f"[12] launches on the mesh path: {mesh_path}")
 
 
+def phase_tools(report):
+    """13: the tools of hosts/ on the card."""
+    import numpy as np
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine.scenario_batch import (
+        run_scenario_grid,
+    )
+    from monte_carlo_retirement_tpu_torch.hosts import (
+        correlation_sweep,
+        edge_sweep,
+        fuzz,
+        scenario_grid_demo,
+    )
+
+    launches = report["launches"]
+    tools = report["launches_tools"] = {}
+    walls = report["tool_walls"] = {}
+
+    def counted(tag, fn, need):
+        """One drive: counters reset before, read after, no plain version
+        allowed, each kernel of ``need`` launched."""
+        ck.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+        if any(plain.values()) or not all(ran[k] for k in need):
+            raise AssertionError(f"[{tag}] launches {ran}, plain calls {plain}")
+        for name, count in ran.items():
+            launches[name] = launches.get(name, 0) + count
+            tools[name] = tools.get(name, 0) + count
+        return out, ran
+
+    edges = edge_sweep.edge_configs()
+    cases = [fuzz.trial_case(fuzz.case_seed(FUZZ_SEED, i)) for i in range(FUZZ_TRIALS)]
+    statics = [ck.statics_from_config(cfg)
+               for cfg in [c for _, c, _ in edges] + [c for c, _ in cases]]
+    built, walls["nvcc"] = fuzz.build_libraries(statics)
+    print(f"[13] {built} month-loop libraries built for the {len(set(statics))} "
+          f"Statics of the edge sweep and the campaign in {walls['nvcc']:.1f} s "
+          f"(one nvcc each, started together)")
+
+    # 13a: the edge sweep.
+    t0 = time.perf_counter()
+    for name, cfg, w in edges:
+        out, ran = counted("13a", lambda: edge_sweep.sweep_edge(cfg, device="cuda"),
+                           ("probe", "full"))
+        check = edge_sweep.check_edge(cfg, w, device="cuda")
+        print(f"[13a] {name:34s} probes {[round(p, 1) for p in out['probes']]} "
+              f"success {out['run'].success_probability:.1f}%; launches {ran}; "
+              f"kernels at W={w} vs {check['reference']} plain: "
+              f"{fuzz.describe(check)}")
+        if out["failed"] or not check["ok"]:
+            raise AssertionError(f"[13a] {name}: {out['failed']} {check}")
+    walls["edges"] = time.perf_counter() - t0
+    print(f"[13a] {len(edges)} edge scenarios finite and in range, every kernel "
+          f"agreeing with its plain version, in {walls['edges']:.1f} s")
+
+    # 13b: the campaign (its launches are comparisons: uncounted).
+    ck.reset_counts()
+    camp = fuzz.run_campaign(FUZZ_TRIALS, FUZZ_SEED, device="cuda",
+                             log=lambda line: print(f"[13b] {line}"))
+    if camp["failed_seed"] is not None:
+        raise AssertionError(f"[13b] the trial of seed {camp['failed_seed']} failed")
+    walls["fuzz"] = camp["wall_s"]
+    rate = camp["clean"] / camp["wall_s"]
+    print(f"[13b] CLEAN: {camp['clean']} trials x {camp['paths']:,} paths in "
+          f"{camp['wall_s']:.1f} s ({rate:.3f} trials/s; comparison launches "
+          f"{dict(ck.LAUNCHES)}); worst per kernel: " + ", ".join(
+              f"{k} flag mismatch {v['flags']:.2e}, q999 final-balance error "
+              f"{v['q999']:.2e}" for k, v in camp["worst"].items())
+          + f"; paths skipped beyond $1e9: {camp['skipped']} of "
+          f"{camp['clean'] * camp['paths']:,}; extension mix {camp['mix']}")
+    if min(camp["mix"].values()) < FUZZ_MIN_EACH:
+        raise AssertionError(f"[13b] an extension ran in fewer than "
+                             f"{FUZZ_MIN_EACH} trials: {camp['mix']}")
+    report["fuzz"] = camp
+
+    # 13c: hosts/bench.py in its own process.
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.hosts.bench"], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+                          text=True, timeout=600)
+    walls["bench"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[13c] hosts/bench.py exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    bench = json.loads(proc.stdout.strip().splitlines()[-1])
+    sim_ms, full_ms = report["times"]["simulate"], report["times"]["full_summarize"]
+    print(f"[13c] hosts/bench.py ({walls['bench']:.1f} s with its start): {json.dumps(bench)}")
+    print(f"[13c]   simulate + success mean {bench['value']:.3f} ms vs phase 6's "
+          f"simulate {sim_ms:.3f} ms; full + reductions {bench['full_stats_ms']:.3f} "
+          f"ms vs phase 6's full + summarize {full_ms:.3f} ms")
+    if not (set(bench) == BENCH_KEYS
+            and abs(bench["value"] - sim_ms) <= BENCH_SIM_RTOL * sim_ms
+            and 0.0 <= bench["success_rate_pct"] <= 100.0):
+        raise AssertionError("[13c] the bench line is malformed or off phase 6")
+    report["bench"] = bench
+
+    # 13d: the two sweeps.
+    t0 = time.perf_counter()
+    (grid, demo_s), ran = counted("13d", lambda: scenario_grid_demo.run_demo(
+        N_FULL, GRID_SIDE, SEED, "cuda"), ("grid",))
+    exact = np.array_equal(grid.ravel(), report["grid_256"])
+    printed = [round(float(v), 2) for v in grid.ravel()] == report["grid_8a"].ravel().tolist()
+    print(f"[13d] scenario_grid_demo, 256 x {N_FULL:,} paths at seed {SEED}: "
+          f"{demo_s:.2f} s, launches {ran}; success grid equal to phase 6's "
+          f"run_scenario_grid: {exact}, to phase 8a's payload (2 decimals): {printed}")
+    if not (exact and printed and ran["grid"] == GRID_SIDE):
+        raise AssertionError("[13d] the demo's grid differs from phases 6 and 8a")
+    sweep, ran = counted("13d", lambda: correlation_sweep.run_sweep(device="cuda"),
+                         ("grid",))
+    bad = []
+    for i, cfg in enumerate(correlation_sweep.sweep_configs()):
+        alone = run_scenario_grid([cfg], [correlation_sweep.W],
+                                  correlation_sweep.N_PATHS,
+                                  seed=correlation_sweep.SEED, device="cuda")
+        bad += [f"row {i} {k}" for k, a, b in zip(alone._fields, sweep, alone)
+                if not np.array_equal(a[i], b[0])]
+    print(f"[13d] correlation_sweep, rho {correlation_sweep.RHOS.tolist()} at W="
+          f"{correlation_sweep.W}: launches {ran}; success % "
+          f"{np.round(sweep.success_probability, 2).tolist()}; fields differing "
+          f"from each row alone: {bad or 'none'}")
+    if bad or ran["grid"] != 1:
+        raise AssertionError("[13d] the correlation sweep differs")
+    walls["sweeps"] = time.perf_counter() - t0
+
+    # 13e: the README's library snippet, on the card.
+    import monte_carlo_retirement_tpu_torch as mcrt
+
+    def snippet():
+        config = mcrt.Config(**mcrt.load_config_from_json(
+            os.path.join(REPO, "config.json")))
+        sim = mcrt.RetirementMonteCarloSimulator(config, device="cuda")
+        months, prob, _curve = sim.find_minimum_working_months(verbose=False)
+        sim.use_final_seeds()
+        summary_df, *_ = sim.run_monte_carlo_simulations(
+            months, config.num_simulations_main)
+        return months, prob, sim._success_probability(summary_df)
+
+    (months, prob, success), ran = counted("13e", snippet, ("probe", "full"))
+    print(f"[13e] the README's library snippet (device='cuda'): {months} months "
+          f"at {prob:.2f}%, final success {success:.2f}%; launches {ran}")
+    if not (months >= 0 and 0.0 <= success <= 100.0):
+        raise AssertionError("[13e] the snippet's answer is out of range")
+    print("[13] walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+          + f"; launches on the tools' path: {tools}")
+
+
 def main() -> int:
     import torch
 
@@ -2058,7 +2194,8 @@ def main() -> int:
     report = {}
     for phase in (phase_build, phase_normals, phase_probe, phase_full,
                   phase_main_path, phase_timings, phase_grid, phase_modes,
-                  phase_extensions, phase_server, phase_chunked, phase_mesh):
+                  phase_extensions, phase_server, phase_chunked, phase_mesh,
+                  phase_tools):
         t0 = time.perf_counter()
         phase(report)
         print(f"--- {phase.__name__}: {time.perf_counter() - t0:.1f} s wall")
@@ -2069,7 +2206,7 @@ def main() -> int:
     main, grid_path, bounds = (report["launches_main"], report["launches_grid"],
                                report["bounds"])
     served, chunked = report["launches_server"], report["launches_chunked"]
-    mesh_path = report["launches_mesh"]
+    mesh_path, tools = report["launches_mesh"], report["launches_tools"]
     pallas = "monte_carlo_retirement_tpu/engine/pallas_kernel.py"
 
     def row(name, key, replaces, err, ms, plain, bound_key, **extra):
@@ -2080,6 +2217,7 @@ def main() -> int:
                 "launches_server_path": served.get(key, 0),
                 "launches_chunked_path": chunked.get(key, 0),
                 "launches_mesh_path": mesh_path.get(key, 0),
+                "launches_tools_path": tools.get(key, 0),
                 "max_abs_err": report[err], "ms": times[ms],
                 "plain_ms": times[plain], "bound_ms": bounds[bound_key][0],
                 "bound_by": bounds[bound_key][1], "library_ms": None, **extra}
@@ -2109,7 +2247,10 @@ def main() -> int:
           "launches_server_path) plus the chunked runs (11a-c: "
           "launches_chunked_path) plus the paths mesh (12a-d: "
           "launches_mesh_path; the process groups of 12c launch in their own "
-          "processes, uncounted); *_all_on = the same under the all-on Statics")
+          "processes, uncounted) plus the tools (13a edge sweep, 13d sweeps, "
+          "13e snippet: launches_tools_path; the campaign's and the checks' "
+          "launches are comparisons and bench.py's run in its own process, "
+          "uncounted); *_all_on = the same under the all-on Statics")
     print(json.dumps({"kernels": kernels}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {

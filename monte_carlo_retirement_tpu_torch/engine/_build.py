@@ -31,7 +31,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("philox.cuh", "month_loop.cu", "normals.cu", "op_count.cu")
@@ -146,11 +146,11 @@ def _start(statics, out: Path):
 
 
 def build_many(statics_list: Sequence[Optional[object]],
-               count_statics: Sequence[object] = ()) -> List[Path]:
+               count_statics: Sequence[object] = ()) -> Tuple[List[Path], int]:
     """Build the libraries of every Statics in ``statics_list`` (None: the
     stream check) and the op-count cubins of ``count_statics`` that do not
     exist yet, one nvcc each, all started together; returns their paths in
-    order, the libraries' first."""
+    order, the libraries' first, and how many were built."""
     paths = ([library_path(s) for s in statics_list]
              + [count_path(s) for s in count_statics])
     todo = {}
@@ -158,7 +158,7 @@ def build_many(statics_list: Sequence[Optional[object]],
         if not out.exists() and out not in todo:
             todo[out] = s
     if not todo:
-        return paths
+        return paths, 0
     build_dir().mkdir(parents=True, exist_ok=True)
     running = [(out, *_start(s, out)) for out, s in todo.items()]
     failures = []
@@ -179,12 +179,12 @@ def build_many(statics_list: Sequence[Optional[object]],
                 proc.wait()
     if failures:
         raise RuntimeError("\n".join(failures))
-    return paths
+    return paths, len(todo)
 
 
 def build(statics=None) -> Path:
     """Compile one library unless it exists."""
-    return build_many([statics])[0]
+    return build_many([statics])[0][0]
 
 
 def build_log(statics=None) -> str:
@@ -195,7 +195,7 @@ def build_log(statics=None) -> str:
 def count_sass(statics) -> str:
     """``cuobjdump -sass`` of the op-count cubin of ``statics`` (built
     unless it exists)."""
-    cubin = build_many([], [statics])[0]
+    cubin = build_many([], [statics])[0][0]
     return subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(cubin)],
                           capture_output=True, text=True, check=True,
                           timeout=NVCC_TIMEOUT_S).stdout

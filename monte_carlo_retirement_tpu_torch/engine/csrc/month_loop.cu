@@ -424,7 +424,8 @@ __device__ __forceinline__ void stream_income(const Scenario& sc,
         fixed[S] = sc.amount[S] * price0;
       nominal = fixed[S];
     }
-    const float inc = active ? nominal * sc.net[S] : 0.0f;
+    // __fmul_rn: the rounded income, never fused into the sum below.
+    const float inc = active ? __fmul_rn(nominal, sc.net[S]) : 0.0f;
     net_income = S == 0 ? inc : net_income + inc;
     stream_income<S + 1>(sc, start, fixed, ret_idx_f, price0, net_income);
   }
@@ -577,7 +578,13 @@ __device__ __forceinline__ void retire_month(const Scenario& sc, Carry& c,
     float net_income = 0.0f;
     stream_income<0>(sc, c.stream_start, c.fixed, ret_idx_f, price0,
                      net_income);
-    need = fmaxf(0.0f, need - net_income);
+    // The rounded income from the rounded expenses, as the JAX loop takes
+    // it (__fsub_rn is never contracted): income that covers the expenses
+    // exactly leaves a need of exactly 0, so a path with no balance lives
+    // on. nvcc's fmaf(expenses, price0, -income) left the product's
+    // round-off, up to half an ulp of expenses x price (> kEps), and ruined
+    // every such path (the edge sweep's zero-balance, pension-funded case).
+    need = fmaxf(0.0f, __fsub_rn(need, net_income));
   }
   bool living = true;
   if constexpr (kMortality) {  // spending ends with the owner (:942-948)

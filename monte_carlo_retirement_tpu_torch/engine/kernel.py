@@ -61,6 +61,28 @@ def shock_planes(statics) -> int:
     return 6 if statics.mortality else 5 if statics.jumps else 3
 
 
+def drawn_shocks(statics, seed: int, n_paths: int, months: int,
+                 block_offset: int = 0, device="cpu") -> torch.Tensor:
+    """The Philox stream's own draws of months 1..``months`` as injected
+    shocks (T, shock_planes, n), float32: what the loop draws month by
+    month for this seed and these paths, drawn in one pass, with the
+    antithetic pairing already applied (the loop applies none to injected
+    shocks), so a run on them equals the run that draws itself."""
+    gblock, lane = path_keys(int(n_paths), block_offset, device)
+    sign = None
+    if statics.antithetic:
+        gblock, sign = pair_blocks(gblock)
+    m = torch.arange(1, int(months) + 1, dtype=torch.int64, device=device)[:, None]
+    planes = list(month_draws(seed, gblock, m, lane, jumps=statics.jumps, sign=sign))
+    if statics.mortality:
+        zeros = torch.zeros_like(planes[0])
+        planes += [zeros, zeros] if not statics.jumps else []
+        u = zeros.clone()
+        u[0] = mortality_uniform(seed, gblock, lane, sign=sign)
+        planes.append(u)
+    return torch.stack(planes, dim=1)
+
+
 def simulate(
     packed,
     statics,

@@ -12,7 +12,9 @@ probe at 1M x 600 under config.json's Statics and under
 1M paths), ``simulate`` at 1M x 600 and the full kernel at 1M x 600: the
 per-row survivor counts, the float64 sum of each row's final balances, a
 checksum of the bits of every output, and the CUDA-event time (warm, min
-of 5). Run it once per checkout in turns (parent, change, change,
+of 5); then the CUDA-event time of the plain versions of the probe, the
+grid chunk, ``simulate`` and the full run (and of the full run under
+``ALL_ON``), min of 2. Run it once per checkout in turns (parent, change, change,
 parent) so both see the same card. ``report`` prints the times side by
 side and every result that differs between the labels.
 """
@@ -92,6 +94,20 @@ def run(root: str, label: str, out_path: str) -> int:
         res["ms"] = cs._time_ms(fn)
         line[name] = res
         print(f"[{label}] {name}: {res['ms']:.3f} ms")
+    # The plain versions of the same launches (launch-bound torch loops).
+    full_on = eng_on._pack(0, "final")
+    L_on = 1 + eng_on._t_scan(0) // 12
+    plains = {
+        "probe_plain": lambda: ck.probe_plain(probe, eng.statics, R, n),
+        "grid_plain": lambda: ck.grid_plain(gpacked, gst, GR, n),
+        "simulate_plain": lambda: ck.simulate_plain(full, eng.statics, R, n),
+        "full_plain": lambda: ck.simulate_full_plain(full, eng.statics, R, n, L),
+        "full_plain_all_on": lambda: ck.simulate_full_plain(
+            full_on, eng_on.statics, R, n, L_on),
+    }
+    for name, fn in plains.items():
+        line[name] = {"ms": cs._time_ms(fn, repeats=2, warm=False)}
+        print(f"[{label}] {name}: {line[name]['ms']:.3f} ms")
     with open(out_path, "a", encoding="utf-8") as fh:
         fh.write(json.dumps(line) + "\n")
     return 0

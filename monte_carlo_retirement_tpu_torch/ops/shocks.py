@@ -121,11 +121,16 @@ def path_keys(
     return (p // BLOCK_PATHS + int(block_offset)) & _MASK32, p % BLOCK_PATHS
 
 
-def month_words(seed: int, gblock, month: int, lane):
-    """The four Philox words of one month for the given paths."""
-    return philox4x32_10(
-        int(month) & _MASK32, lane, 0, 0, int(seed) & _MASK32, gblock
-    )
+def _month(month):
+    """A month counter (an int, or an int64 tensor of months that
+    broadcasts against the paths) as uint32 bits."""
+    return torch.as_tensor(month, dtype=torch.int64) & _MASK32
+
+
+def month_words(seed: int, gblock, month, lane):
+    """The four Philox words of one month (or of a tensor of months) for
+    the given paths."""
+    return philox4x32_10(_month(month), lane, 0, 0, int(seed) & _MASK32, gblock)
 
 
 def pair_blocks(gblock: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -140,10 +145,12 @@ def month_normals(seed: int, gblock, month: int, lane) -> torch.Tensor:
     return month_draws(seed, gblock, month, lane)
 
 
-def month_draws(seed: int, gblock, month: int, lane, jumps: bool = False,
+def month_draws(seed: int, gblock, month, lane, jumps: bool = False,
                 sign: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One month's draws, float32: (3, n) normals (z_eq, z_ind, z_prem), or
-    with ``jumps`` (5, n) adding the crash uniform and normal (u, z_j).
+    with ``jumps`` (5, n) adding the crash uniform and normal (u, z_j). A
+    (T, 1) tensor of months gives (3 or 5, T, n), every month's draws at
+    once.
     ``sign`` (the antithetic pairing's, per path) negates the normals and
     reflects the uniform where it is -1."""
     w0, w1, w2, w3 = month_words(seed, gblock, month, lane)
@@ -151,8 +158,7 @@ def month_draws(seed: int, gblock, month: int, lane, jumps: bool = False,
     if jumps:
         u = bits_to_uniform(w3)
         z_j = bits_to_normal(philox4x32_10(
-            int(month) & _MASK32, lane, CRASH_COUNTER, 0, int(seed) & _MASK32,
-            gblock)[0])
+            _month(month), lane, CRASH_COUNTER, 0, int(seed) & _MASK32, gblock)[0])
         z += [u, z_j]
     if sign is not None:
         z = [v * sign for v in z]

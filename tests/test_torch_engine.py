@@ -132,7 +132,8 @@ def test_port_never_imports_jax():
         "from monte_carlo_retirement_tpu_torch.engine.simulator import "
         "RetirementMonteCarloSimulator\n"
         "from monte_carlo_retirement_tpu_torch.hosts import (\n"
-        "    cli, grid, openapi, optimize, payload, plotting, schemas,\n"
+        "    bench, cli, correlation_sweep, edge_sweep, fuzz, grid, openapi,\n"
+        "    optimize, payload, plotting, scenario_grid_demo, schemas,\n"
         "    sensitivity, server)\n"
         "from monte_carlo_retirement_tpu_torch.engine import (\n"
         "    optimize as opt, scenario_batch, sensitivity as sens)\n"

@@ -22,7 +22,9 @@ from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck  # noqa: E
 from monte_carlo_retirement_tpu_torch.engine.kernel import shock_planes  # noqa: E402
 from monte_carlo_retirement_tpu_torch.models.retirement import SimParams  # noqa: E402
 from monte_carlo_retirement_tpu_torch.timing import expected_trajectory_length  # noqa: E402
+from monte_carlo_retirement_tpu_torch.hosts import edge_sweep  # noqa: E402
 from tests.conftest import make_config  # noqa: E402
+from tests.test_torch_edge_sweep import assert_edge_matches_jax  # noqa: E402
 from tests.oracle import simulate_path_oracle  # noqa: E402
 from tests.test_fuzz_parity import _random_config  # noqa: E402
 
@@ -107,3 +109,11 @@ def test_plain_loop_matches_oracle_on_edge_scenarios(overrides, working_months):
         inv2_use_realized_gains_tax_system=False, **overrides,
     )
     assert _differential(cfg, working_months, 77) == 0
+
+
+@pytest.mark.parametrize("name", list(edge_sweep.ORACLE_EDGES))
+def test_oracle_edges_match_the_jax_engine(name):
+    """The four edges as hosts/edge_sweep.py runs them, through the port's
+    float64 engine and the JAX engine at 4096 paths (within 4 sigma)."""
+    cfg, w = {n: (c, w) for n, c, w in edge_sweep.edge_configs()}[name]
+    assert_edge_matches_jax(cfg, w)
