@@ -149,6 +149,22 @@ result):
      its 9 rows in one grid launch, each equal to the row alone; (e) the
      README's library snippet on the card. Launches of (a), (d) and (e)
      are counted; the campaign's and the checks' are comparisons.
+ 14. the scan engine on the card (engine/kernel.simulate_paths: the JAX
+     scan's threefry stream, ops/threefry.py, and the plain loop's month
+     body; plain torch, no kernel): (a) threefry words and float32/float64
+     uniforms of (1,000,003, 3) draws bit-equal card vs CPU, for main seeds
+     0, 7, 2026 and 2**40 + 3 at months 1, 600, JUMP_FOLD_OFFSET + 5 and
+     MORT_FOLD_OFFSET; the normals' largest difference card vs CPU; (b)
+     simulate_paths in float64 on the card vs the same call on the CPU
+     (4,113 paths, R = 10, config.json and the all-on config with
+     antithetic pairing): success flags equal, final balances within
+     relative 1e-12 (paths beyond $1e9 skipped and counted); (c) the main
+     path through Engine(dtype=float64, device="cuda"), which picks the
+     scan: at config.json's own sizes equal to the JAX engine's CPU answer,
+     then at 1M search + 1M final paths (month, success, both walls; no
+     kernel launched), and one float32 scan probe at phase 6's probe shape;
+     (d) hosts/cross_backend_check.py: its three cases within max(3 sigma,
+     0.5) points; (e) hosts/scaling_demo.py's lines.
 
 The kernels' line comes before the last two: {"kernels": [...]}, one row
 per kernel with its launches on the main path (phase 5), the grid path
@@ -248,6 +264,19 @@ FUZZ_MIN_EACH = 3  # trials per extension the campaign must reach
 BENCH_SIM_RTOL = 0.10  # hosts/bench.py's simulate time vs phase 6's
 BENCH_KEYS = {"metric", "value", "unit", "success_rate_pct", "full_stats_ms",
               "card_name", "power_limit"}
+# Phase 14: the scan engine (threefry, plain torch) on the card.
+KEYS_14A = (0, 7, 2026, 2**40 + 3)  # main seeds of the threefry checks
+SHAPE_14A = (1_000_003, 3)  # an odd row count: the counters' last pair
+N_14B = 4096 + 17
+R_14B = 10
+W_14B = 150  # a partial working year: the terminal settle runs
+PARITY_14B = 1e-12  # card vs CPU, float64 final balances (relative)
+BIG_14B = 1e9  # the conditioning bound of ROADMAP C
+# The JAX engine's answer on the CPU in float64 (its scan backend) for
+# config.json at its own sizes and seed 2026: months, search %, final %
+# (tests/test_torch_scan_search.py holds the port's CPU scan to it).
+JAX_CPU_ANSWER = (234, 97.667, 98.1)
+MONTHS_14C = 6  # the scan's month at 1M paths vs the kernels' (phase 5b)
 
 
 def _card_line() -> str:
@@ -2176,6 +2205,186 @@ def phase_tools(report):
           + f"; launches on the tools' path: {tools}")
 
 
+def phase_scan(report):
+    """14: the scan engine on the card (plain torch: no kernel launches)."""
+    import numpy as np
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine.kernel import simulate_paths
+    from monte_carlo_retirement_tpu_torch.engine.runner import Engine
+    from monte_carlo_retirement_tpu_torch.engine.simulator import (
+        RetirementMonteCarloSimulator,
+    )
+    from monte_carlo_retirement_tpu_torch.hosts import (
+        cross_backend_check,
+        scaling_demo,
+    )
+    from monte_carlo_retirement_tpu_torch.models.retirement import SimParams
+    from monte_carlo_retirement_tpu_torch.ops import shocks, threefry
+
+    scan = report["scan"] = {}
+
+    # 14a: threefry words and uniforms bit-equal card vs CPU; normals.
+    t0 = time.perf_counter()
+    months = (1, 600, shocks.JUMP_FOLD_OFFSET + 5, shocks.MORT_FOLD_OFFSET)
+    compared = 0
+    for seed in KEYS_14A:
+        stream = shocks.stream_keys(seed)[1]
+        for m in months:
+            key = threefry.fold_in(stream, m)
+            for a, b in zip(threefry.random_words(key, SHAPE_14A, device="cuda"),
+                            threefry.random_words(key, SHAPE_14A)):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"[14a] words differ: seed {seed} month {m}")
+            for dt in (torch.float32, torch.float64):
+                u = threefry.uniform(key, SHAPE_14A, dt, device="cuda")
+                if not torch.equal(u.cpu(), threefry.uniform(key, SHAPE_14A, dt)):
+                    raise AssertionError(f"[14a] uniforms differ: seed {seed} "
+                                         f"month {m} {dt}")
+            compared += 1
+    normal_err = {}
+    key = threefry.fold_in(shocks.stream_keys(SEED)[1], 1)
+    for dt in (torch.float32, torch.float64):
+        a = threefry.normal(key, SHAPE_14A, dt, device="cuda").cpu()
+        b = threefry.normal(key, SHAPE_14A, dt)
+        ulps = ((a - b).abs() / torch.from_numpy(np.spacing(b.abs().numpy()))).max()
+        normal_err[str(dt)] = ((a - b).abs().max().item(), ulps.item())
+        if not (torch.isfinite(a).all() and ulps <= 64):
+            raise AssertionError(f"[14a] normals {dt}: {normal_err[str(dt)]}")
+    scan["normals_card_vs_cpu"] = normal_err
+    print(f"[14a] threefry words (y0, y1) and float32/float64 uniforms of "
+          f"{SHAPE_14A} draws bit-equal card vs CPU for {compared} keys (main "
+          f"seeds {list(KEYS_14A)} x months {list(months)}); normals card vs "
+          f"CPU (max abs, max ulps): " + ", ".join(
+              f"{k} {v[0]:.3e} / {v[1]:.0f}" for k, v in normal_err.items())
+          + f"; {time.perf_counter() - t0:.1f} s")
+
+    # 14b: simulate_paths on the card == on the CPU, float64.
+    t_scan = ((W_14B + 12 * R_14B + 59) // 60) * 60
+    for label, over in (("config.json", {}), ("all-on", ALL_ON)):
+        cfg = _config(retirement_years=R_14B, **dict(over))
+        flags = dict(antithetic=bool(cfg.antithetic),
+                     jumps=cfg.market_crashes is not None,
+                     mortality=cfg.longevity is not None)
+        outs = [simulate_paths(
+            SimParams.from_config(cfg, device=dev), W_14B,
+            shocks.stream_keys(SEED)[1], n_paths=N_14B, t_scan=t_scan,
+            retirement_years=R_14B, traj_len=1 + t_scan // 12,
+            dtype=torch.float64, **flags) for dev in ("cuda", "cpu")]
+        card, cpu = [{k: v.cpu().numpy() for k, v in o._asdict().items()}
+                     for o in outs]
+        ok = cpu["final_balance"] < BIG_14B
+        same_flags = np.array_equal(card["success"], cpu["success"])
+        rel = np.abs(card["final_balance"] - cpu["final_balance"])[ok] / np.maximum(
+            np.abs(cpu["final_balance"][ok]), 1.0)
+        worst = {}
+        for name in ("start_balance", "years_to_ruin", "first_year_gross",
+                     "first_year_real_gross", "trajectory", "withdrawal_rates"):
+            a, b = card[name], cpu[name]
+            fin = ~np.isnan(b)
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                raise AssertionError(f"[14b] {label}: NaN pattern of {name}")
+            worst[name] = float(np.max(np.abs(a[fin] - b[fin]) / np.maximum(
+                np.abs(b[fin]), 1.0), initial=0.0))
+        scan[f"parity_{label}"] = {"flags_equal": same_flags,
+                                   "final_rel": float(rel.max()),
+                                   "skipped": int((~ok).sum()),
+                                   "success_pct": float(cpu["success"].mean() * 100)}
+        print(f"[14b] simulate_paths float64, {label}{' (antithetic)' if flags['antithetic'] else ''}, "
+              f"{N_14B:,} paths, W={W_14B}, R={R_14B}: card vs CPU success "
+              f"flags equal {same_flags} ({cpu['success'].mean() * 100:.2f}% "
+              f"success), final balances max rel {rel.max():.2e} (bound "
+              f"{PARITY_14B:.0e}; paths beyond $1e9 skipped: {(~ok).sum()}); "
+              f"other fields max rel {max(worst.values()):.2e}")
+        if not (same_flags and rel.max() <= PARITY_14B
+                and max(worst.values()) <= 1e-9):
+            raise AssertionError(f"[14b] {label}: the card's scan differs: {worst}")
+
+    # 14c: the main path through the scan: a float64 engine on the card.
+    def float64_main_path(n_search, n_final):
+        over = {} if n_search is None else dict(
+            num_simulations_search=n_search, num_simulations_main=n_final)
+        cfg = _config(**over)
+        ck.reset_counts()
+        t0 = time.perf_counter()
+        sim = RetirementMonteCarloSimulator(cfg, dtype=torch.float64, device="cuda")
+        backend = sim.engine._resolve_backend(None, "probe")
+        months, prob, curve = sim.find_minimum_working_months(verbose=False)
+        t_search = time.perf_counter() - t0
+        sim.use_final_seeds()
+        t1 = time.perf_counter()
+        summary_df, traj_df, *_ = sim.run_monte_carlo_simulations(
+            months, cfg.num_simulations_main)
+        t_final = time.perf_counter() - t1
+        ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+        if backend != "scan" or any(ran.values()) or any(plain.values()):
+            raise AssertionError(f"[14c] not the scan: {backend} {ran} {plain}")
+        success = sim._success_probability(summary_df)
+        if not (np.isfinite(traj_df.to_numpy()).all()
+                and np.isfinite(summary_df["Final Balance"]).all()):
+            raise AssertionError("[14c] non-finite results")
+        return cfg, months, prob, len(curve), success, t_search, t_final
+
+    cfg, months, prob, cands, success, t_s, t_f = float64_main_path(None, None)
+    got = (months, round(prob, 3), round(success, 1))
+    print(f"[14c] Engine(dtype=float64, device='cuda') picks the scan; "
+          f"config.json at its own sizes ({cfg.num_simulations_search} search, "
+          f"{cfg.num_simulations_main} final paths): {months} months at "
+          f"{prob:.3f}% ({cands} candidates), final success {success:.1f}% "
+          f"(the JAX engine on the CPU, x64: {JAX_CPU_ANSWER}); search "
+          f"{t_s:.2f} s, final {t_f:.2f} s; no kernel launched")
+    if got != JAX_CPU_ANSWER:
+        raise AssertionError(f"[14c] {got} != the JAX answer {JAX_CPU_ANSWER}")
+    cfg, months, prob, cands, success, t_s, t_f = float64_main_path(N_FULL, N_FULL)
+    margin = 150.0 / math.sqrt(N_FULL)
+    kernel_months = report["5b"]["months"]
+    scan.update(months=months, search_pct=prob, success_pct=success,
+                search_s=t_s, final_s=t_f, paths=N_FULL)
+    print(f"[14c] the main path through the scan, float64 on the card, "
+          f"{N_FULL:,} search + {N_FULL:,} final paths: {months} months at "
+          f"{prob:.3f}% ({cands} candidates), final success {success:.3f}%; "
+          f"search wall {t_s:.2f} s, final-run wall {t_f:.2f} s (the kernels' "
+          f"float32 search, phase 5b: {kernel_months} months)")
+    if not (success >= cfg.target_probability - margin
+            and abs(months - kernel_months) <= MONTHS_14C):
+        raise AssertionError("[14c] the scan's answer is off")
+    eng = Engine(_config(retirement_years=50, initial_balance=1.5e6,
+                         monthly_expenses=4_000.0), dtype=torch.float32,
+                 device="cuda")
+    scan["probe_f32_ms"] = _time_ms(lambda: eng.probe(list(range(16)), N_FULL,
+                                                     backend="scan"), repeats=1)
+    print(f"[14c] one scan probe at phase 6's shape (16 x {N_FULL:,} x 600, "
+          f"float32): {scan['probe_f32_ms']:.1f} ms (CUDA events; the probe "
+          f"kernel: {report['times']['probe']:.3f} ms)")
+
+    # 14d: hosts/cross_backend_check.py on the card.
+    t0 = time.perf_counter()
+    rows = cross_backend_check.check(device="cuda")
+    scan["cross_backend"] = [r._asdict() for r in rows]
+    for r in rows:
+        print(f"[14d] {r.name:24s} scan {r.scan_pct:8.3f}%  kernel "
+              f"{r.kernel_pct:8.3f}%  diff {r.diff:7.3f}  3 sigma "
+              f"{r.three_sigma:6.3f}  {'ok' if r.ok else 'MISMATCH'}")
+    print(f"[14d] {cross_backend_check.N_PATHS:,} paths per engine, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not all(r.ok for r in rows):
+        raise AssertionError("[14d] a case is beyond max(3 sigma, 0.5) points")
+
+    # 14e: hosts/scaling_demo.py on the card.
+    t0 = time.perf_counter()
+    lines = scaling_demo.demo(device="cuda")
+    print("[14e] shards are cuda:0 repeated: they run in turn on one card, so "
+          "the speed-up is not scaling across cards")
+    for ln in lines:
+        print(f"[14e] {ln.engine:6s} {ln.shards} shard(s): {ln.best_ms:8.1f} ms"
+              f"   speedup {ln.speedup:4.2f}x   success {ln.success_pct:.2f}%")
+    scan["scaling"] = [ln._asdict() for ln in lines]
+    for engine in ("scan", "kernel"):
+        if len({ln.success_pct for ln in lines if ln.engine == engine}) != 1:
+            raise AssertionError(f"[14e] the {engine}'s success moved with shards")
+    print(f"[14e] {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2195,7 +2404,7 @@ def main() -> int:
     for phase in (phase_build, phase_normals, phase_probe, phase_full,
                   phase_main_path, phase_timings, phase_grid, phase_modes,
                   phase_extensions, phase_server, phase_chunked, phase_mesh,
-                  phase_tools):
+                  phase_tools, phase_scan):
         t0 = time.perf_counter()
         phase(report)
         print(f"--- {phase.__name__}: {time.perf_counter() - t0:.1f} s wall")

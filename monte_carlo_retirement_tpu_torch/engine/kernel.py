@@ -16,21 +16,25 @@ that is off runs no code and reads none of its parameters.
 Shocks come either injected, ``(T, P, n)`` with month m reading row m-1 in
 the Pallas plane layout (planes 0-2 the normals; with crashes 3-4 the crash
 uniform and normal; with longevity plane 5 of month 0 the longevity
-uniform; antithetic pairing does not apply to injected shocks), or from the
-Philox stream of ``ops/shocks.py``. Candidates (rows of the packed iparams)
+uniform; antithetic pairing does not apply to injected shocks), from the
+Philox stream of ``ops/shocks.py``, or from the JAX scan's threefry stream
+(``ScanDraws``: the scan engine, ``simulate_paths`` at the end of this
+module). Candidates (rows of the packed iparams)
 share one month's draws and differ in their working months and, in a
 scenario grid, in their parameter rows (each parameter is a column that
 broadcasts over the paths, so one vectorised loop runs K scenarios): a
 candidate takes the accumulation step while m <= W and the retirement step
 while W < m <= W + 12R, and its snapshot right after its own month W. The
 loop runs in float64 on the CPU (the tests and the CPU engine) and in
-float32 on the card, where it is the yardstick of the kernels.
+float32 on the card, where it is the yardstick of the kernels; as the
+scan it runs in either precision on either device (a float64 engine on
+the card runs it).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -38,9 +42,12 @@ from ..constants import MONTHS_PER_YEAR, SMALL_EPSILON
 from ..ops.shocks import (
     gompertz_remaining_months,
     month_draws,
+    monthly_jump_draws,
+    monthly_normals,
     mortality_uniform,
     pair_blocks,
     path_keys,
+    threefry_mortality_uniform,
 )
 from ..ops.tax import (
     annual_tax,
@@ -50,7 +57,7 @@ from ..ops.tax import (
     rebalance_lite,
     withdraw_pro_rata,
 )
-from .cuda_kernel import F
+from .cuda_kernel import F, Packed, Statics, _fparams, _iparams, require_device
 
 EPS = SMALL_EPSILON
 Y = MONTHS_PER_YEAR
@@ -90,6 +97,8 @@ def simulate(
     n_paths: int,
     traj_len: int = 0,
     shocks: Optional[torch.Tensor] = None,
+    draws: Optional["ScanDraws"] = None,
+    acc_months: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Run the month loop for every candidate row of ``packed``.
 
@@ -99,6 +108,12 @@ def simulate(
     ``traj_len > 0`` (one candidate only) also the tracked per-path vectors
     (n,) and the series ``trajectory``/``price_levels`` (n, traj_len) and
     ``withdrawal_rates`` (n, R).
+
+    The draws come from ``shocks`` (injected), from ``draws`` (the scan
+    engine's threefry stream, month by month) or else from the Philox
+    stream of ``packed``'s seed. ``acc_months`` caps the accumulation
+    phase at that many months (the scan's ``t_scan - 12 R``): a row whose
+    W exceeds it accumulates no further and still retires after month W.
     """
     R = int(retirement_years)
     n = int(n_paths)
@@ -183,7 +198,9 @@ def simulate(
             gblock, sign = pair_blocks(gblock)
 
     def draw(m):
-        if shocks is not None:
+        if draws is not None:
+            z = draws(m)
+        elif shocks is not None:
             z = shocks[m - 1].to(dtype)
         else:
             z = month_draws(seed, gblock, m, lane, jumps=statics.jumps,
@@ -203,7 +220,9 @@ def simulate(
 
     if statics.mortality:
         # One uniform per path -> remaining months at each row's own W.
-        if shocks is not None:
+        if draws is not None:
+            u_mort = draws.mortality()
+        elif shocks is not None:
             u_mort = shocks[0, 5].to(dtype)
         else:
             u_mort = mortality_uniform(seed, gblock, lane, sign=sign).to(dtype)
@@ -423,8 +442,10 @@ def simulate(
             wr[yslot] = torch.where(wr_mask, wr_value, wr[yslot])[0]
         return dict(out, ytr=ytr, yg=yg, yr=yr, fyg=fyg, fyr=fyr)
 
+    acc_end = [w if acc_months is None else min(w, int(acc_months))
+               for w in w_list]
     if track:
-        for m in range(1, w + 1):
+        for m in range(1, acc_end[0] + 1):
             st = accum_month(m, st, draw(m))
         # retirement snapshot (straight-line, once, right after month W)
         st = snapshot(st, torch.ones_like(w_t, dtype=torch.bool))
@@ -438,16 +459,18 @@ def simulate(
             st = ret_month(m, st, draw(m))
     else:
         w_min, w_max = min(w_list), max(w_list)
+        acc_max = max(acc_end)
+        acc_t = torch.tensor(acc_end, dtype=torch.int64, device=dev)[:, None]
         for m in range(1, max(t_end_list) + 1):
             g = draw(m)
-            acc_st = accum_month(m, st, g) if m <= w_max else None
+            acc_st = accum_month(m, st, g) if m <= acc_max else None
             ret_st = ret_month(m, st, g) if m > w_min else None
-            if ret_st is None:
+            if ret_st is None and m <= min(acc_end):
                 st = acc_st
             elif acc_st is None and m <= min(t_end_list):
                 st = ret_st
             else:
-                in_acc = m <= w_t
+                in_acc = m <= acc_t
                 in_ret = (m > w_t) & (m <= t_end_t)
                 new = {}
                 for key, old in st.items():
@@ -480,3 +503,162 @@ def simulate(
             "withdrawal_rates": wr.t(),
         }
     return out
+
+
+# ---------------------------------------------------------------------------
+# The scan engine: the JAX package's ``engine/kernel.py::simulate_paths``
+# ---------------------------------------------------------------------------
+class PathOutputs(NamedTuple):
+    """Per-path results of one batched simulation run (the JAX
+    ``PathOutputs``). In probe mode (``traj_len == 0``) only ``success``
+    and ``final_balance`` are set; the other fields are None."""
+
+    success: torch.Tensor  # (n,) bool: every month of spending was funded
+    final_balance: torch.Tensor  # (n,)
+    start_balance: Optional[torch.Tensor]  # (n,) balance at retirement
+    years_to_ruin: Optional[torch.Tensor]  # (n,) NaN when successful
+    first_year_gross: Optional[torch.Tensor]  # (n,) nominal, year 0
+    first_year_real_gross: Optional[torch.Tensor]  # (n,) retirement-date $
+    inflation_at_retirement: Optional[torch.Tensor]  # (n,)
+    trajectory: Optional[torch.Tensor]  # (n, L) yearly samples
+    price_levels: Optional[torch.Tensor]  # (n, L)
+    withdrawal_rates: Optional[torch.Tensor]  # (n, R) real % of start
+
+
+class ScanDraws:
+    """The scan engine's threefry draws of one stream key for the paths
+    ``row_offset .. row_offset + n_paths``, one month at a time, in the
+    plane layout of injected shocks: (z_eq, z_ind, z_prem) and with
+    ``jumps`` the crash (u, z_j), antithetic pairing applied
+    (``ops/shocks.monthly_normals``, ``monthly_jump_draws``,
+    ``threefry_mortality_uniform``)."""
+
+    def __init__(self, stream_key, n_paths: int, dtype, *,
+                 antithetic: bool = False, jumps: bool = False,
+                 row_offset: int = 0, device="cpu"):
+        self.key = stream_key
+        self.kw = dict(n_paths=int(n_paths), dtype=dtype,
+                       antithetic=antithetic, row_offset=int(row_offset),
+                       device=device)
+        self.jumps = jumps
+
+    def __call__(self, month: int) -> torch.Tensor:
+        z = monthly_normals(self.key, month, **self.kw)
+        if not self.jumps:
+            return z
+        u, z_j = monthly_jump_draws(self.key, month, **self.kw)
+        return torch.cat([z, u[None], z_j[None]])
+
+    def mortality(self) -> torch.Tensor:
+        return threefry_mortality_uniform(self.key, **self.kw)
+
+
+def _flag(t: torch.Tensor, what: str) -> bool:
+    """One structural flag of every row of a (possibly stacked) leaf."""
+    v = t.detach().cpu().reshape(-1)
+    if v.numel() and bool((v != v[0]).any()):
+        raise ValueError(f"the rows of a scan batch mix {what}")
+    return bool(v[0]) if v.numel() else False
+
+
+def scan_statics(params, antithetic: bool = False, jumps: bool = False,
+                 mortality: bool = False) -> Statics:
+    """The loop's ``Statics`` for parameters the JAX scan takes as data:
+    tax systems and stream kinds from the leaves, the glide path and the
+    guardrails wherever a row leaves their no-op sentinels (the scan runs
+    them with the sentinels as exact no-ops; the loop skips them), the
+    sampling, crash and longevity rules as given (compile-time in JAX
+    too). Rows of a batch must share tax systems and stream kinds."""
+    use1 = _flag(params.use_real1, "tax systems")
+    use2 = _flag(params.use_real2, "tax systems")
+    s = params.n_streams
+    idx = params.stream_indexed.detach().cpu().reshape(-1, s) if s else None
+    cap = (torch.isfinite(params.stream_duration_months.detach().cpu())
+           .reshape(-1, s) if s else None)
+    if s and (bool((idx != idx[0]).any()) or bool((cap != cap[0]).any())):
+        raise ValueError("the rows of a scan batch mix stream kinds")
+    any_ = lambda t: bool(t.detach().cpu().any())
+    return Statics(
+        use_real1=use1,
+        use_real2=use2,
+        bill1=(not use1) and any_(params.ann_tax1 > 0.0),
+        bill2=(not use2) and any_(params.ann_tax2 > 0.0),
+        stream_indexed=tuple(bool(v) for v in idx[0]) if s else (),
+        stream_capped=tuple(bool(v) for v in cap[0]) if s else (),
+        antithetic=bool(antithetic),
+        glide=any_(params.alloc1_final != params.alloc1),
+        guardrails=any_((params.gr_adjust != 0.0) | (params.gr_lower != 0.0)
+                        | ~torch.isinf(params.gr_upper)
+                        | (params.gr_floor != 1.0) | (params.gr_cap != 1.0)),
+        jumps=bool(jumps),
+        mortality=bool(mortality),
+    )
+
+
+def scan_rows(params, months: Sequence[int], stream_key, *, n_paths: int,
+              t_scan: int, retirement_years: int, dtype,
+              antithetic: bool = False, jumps: bool = False,
+              mortality: bool = False, row_offset: int = 0, device=None,
+              traj_len: int = 0) -> Dict[str, torch.Tensor]:
+    """The scan of every working-months row of ``months`` on one key's
+    shared draws: ``params`` shared by the rows (the vmapped probe,
+    ``runner.py::_probe_impl``) or one row each (a stacked batch,
+    ``scenario_batch.py::_batch_impl``). Returns the plain loop's dict:
+    success (0/1) and final balance (K, n), plus the tracked fields for
+    ``traj_len > 0`` (one row)."""
+    device = torch.device(params.initial_balance.device if device is None
+                          else device)
+    require_device(device)
+    months = [int(m) for m in months]
+    if any(m < 0 for m in months):
+        raise ValueError(f"working months must be >= 0: {months}")
+    R = int(retirement_years)
+    statics = scan_statics(params, antithetic, jumps, mortality)
+    packed = Packed(fp=_fparams(params, dtype).to(device).contiguous(),
+                    ip=_iparams(months, R, 0, 0, device),
+                    n_streams=params.n_streams)
+    draws = ScanDraws(stream_key, n_paths, dtype, antithetic=antithetic,
+                      jumps=jumps, row_offset=row_offset, device=device)
+    return simulate(packed, statics, R, n_paths, traj_len=traj_len,
+                    draws=draws,
+                    acc_months=int(t_scan) - MONTHS_PER_YEAR * R)
+
+
+def simulate_paths(params, working_months, stream_key, *, n_paths: int,
+                   t_scan: int, retirement_years: int, traj_len: int, dtype,
+                   antithetic: bool = False, jumps: bool = False,
+                   mortality: bool = False, row_offset: int = 0,
+                   device=None) -> PathOutputs:
+    """Simulate ``n_paths`` lifetimes at ``working_months`` on the scan
+    engine's threefry stream ``stream_key`` (the JAX ``simulate_paths``,
+    ``engine/kernel.py:124-213``, same arguments and results).
+
+    The months run through the plain loop's body, one month's draws at a
+    time (``ScanDraws``): accumulation while m <= min(W, t_scan - 12 R),
+    the retirement snapshot, then the 12 R retirement months. ``traj_len
+    == 0`` is probe mode (success and final balance only); ``antithetic``,
+    ``jumps`` and ``mortality`` select the paired sampling, the crash draws
+    and the longevity draw. ``row_offset`` simulates the global paths
+    ``row_offset ..`` of a larger batch (a shard); ``device`` defaults to
+    the parameters' device.
+    """
+    out = scan_rows(params, [int(working_months)], stream_key,
+                    n_paths=n_paths, t_scan=t_scan,
+                    retirement_years=retirement_years, dtype=dtype,
+                    antithetic=antithetic, jumps=jumps, mortality=mortality,
+                    row_offset=row_offset, device=device, traj_len=traj_len)
+    if traj_len <= 0:
+        return PathOutputs(out["success"][0] > 0.5, out["final_balance"][0],
+                           *([None] * 8))
+    return PathOutputs(
+        success=out["success"] > 0.5,
+        final_balance=out["final_balance"],
+        start_balance=out["start_balance"],
+        years_to_ruin=out["years_to_ruin"],
+        first_year_gross=out["first_year_gross"],
+        first_year_real_gross=out["first_year_real_gross"],
+        inflation_at_retirement=out["inflation_at_retirement"],
+        trajectory=out["trajectory"],
+        price_levels=out["price_levels"],
+        withdrawal_rates=out["withdrawal_rates"],
+    )

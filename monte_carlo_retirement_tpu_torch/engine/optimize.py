@@ -1,8 +1,8 @@
 """Plan optimization over one or two config fields by batched grid refinement.
 
 A copy of the JAX package's ``engine/optimize.py`` with the port's imports
-(numpy only), ``device`` in place of ``backend`` (the port has one grid
-engine) and ``mesh`` passed on to ``run_scenario_grid``. The
+(numpy only), and ``device``, ``mesh`` and ``backend`` passed on to
+``run_scenario_grid``. The
 algorithm is NOT a serial line search: each refinement round evaluates the
 full product grid over the current interval(s) in ONE scenario-grid
 dispatch (engine/scenario_batch.py), takes the argmax cell, and zooms each
@@ -143,6 +143,7 @@ def optimize_params(
     device="cuda",
     mesh=None,
     progress_callback: Optional[Callable[[dict], None]] = None,
+    backend: Optional[str] = None,
 ) -> JointOptimizeResult:
     """Maximize ``objective`` over one or two config fields at fixed months.
 
@@ -262,6 +263,7 @@ def optimize_params(
             device=device,
             mesh=mesh,
             progress_callback=progress_callback,
+            backend=backend,
         )
 
     def point(rows, res, med, obj, i) -> JointOptimizePoint:
@@ -366,6 +368,7 @@ def optimize_param(
     device="cuda",
     mesh=None,
     progress_callback: Optional[Callable[[dict], None]] = None,
+    backend: Optional[str] = None,
 ) -> OptimizeResult:
     """Maximize ``objective`` over one scalar config field at fixed months.
 
@@ -386,6 +389,7 @@ def optimize_param(
         device=device,
         mesh=mesh,
         progress_callback=progress_callback,
+        backend=backend,
     )
 
     def scalar(p: JointOptimizePoint) -> OptimizePoint:

@@ -25,14 +25,27 @@ shards share the host's memory) gathers the shards' outputs and reduces
 them as one run. Either way every field equals the mesh-less run's, and
 every process of a group returns the same result.
 
+Backends (the JAX ``_BACKENDS``, argument ``backend=`` or the
+``MCRT_PROBE_BACKEND`` / ``MCRT_RUN_BACKEND`` knobs): "pallas" is the
+kernels on one device (their plain versions on the CPU), "pallas_sharded"
+the sharded launches over the mesh, "scan" the JAX scan engine
+(``engine/kernel.simulate_paths``: the threefry keys ``search_key`` and
+``final_key`` of ``stream_keys(main_seed)``, JAX's ``_probe_impl`` and
+``_run_impl``; never chunked; over a mesh each shard draws its own global
+rows and the shards' outputs are gathered, so every field equals the
+mesh-less scan's). "auto" takes the scan for a float64 engine on the card,
+as JAX does, and the (sharded) kernels otherwise, on the CPU too, where
+JAX's auto is the scan.
+
 Stream seeds and sample rows follow the JAX engine's rules
 (``runner.py:463-470, 654-658``), so both packages pick the same seeds and
-sample paths for a given main seed. There is no scan backend, no compile
-cache and no trajectory-width cap here: the width is ``1 + t_scan // 12``.
+sample paths for a given main seed. There is no compile cache and no
+trajectory-width cap here: the width is ``1 + t_scan // 12``.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import time
@@ -53,7 +66,7 @@ from ..logging_utils import generate_seed_from_timestamp
 from ..models.retirement import SimParams
 from ..ops.chunked_quantiles import BandSearch, bracket_ranks
 from ..ops.quantiles import ceil_stats, count_le, floor_values
-from ..ops.shocks import BLOCK_PATHS
+from ..ops.shocks import BLOCK_PATHS, stream_keys
 from ..ops.stats import real_series, serving_bins, summarize, vector_summary
 from ..parallel import distributed
 from ..parallel.mesh import (
@@ -72,6 +85,7 @@ from .cuda_kernel import (
     simulate_full,
     statics_from_config,
 )
+from .kernel import scan_rows
 from .sharded import gather_paths, probe_sharded, simulate_full_sharded
 
 log = logging.getLogger("mcrt.engine")
@@ -218,9 +232,10 @@ def _host_vectors(vecs) -> dict:
 class Engine:
     """Monte Carlo engine for one scenario on one torch device or a mesh.
 
-    ``device="cuda"`` runs the CUDA kernels in float32 and raises when no
-    card is present; ``device="cpu"`` runs the plain versions (float64 by
-    default). ``mesh`` (a ``parallel.mesh.PathMesh`` of the same kind of
+    ``device="cuda"`` runs the CUDA kernels in float32 (a float64 engine
+    there runs the scan) and raises when no card is present;
+    ``device="cpu"`` runs the plain versions (float64 by default).
+    ``mesh`` (a ``parallel.mesh.PathMesh`` of the same kind of
     device) shards every launch's paths over its devices; with
     ``MCRT_MESH`` set to ``auto``, ``local`` or ``1`` and no mesh passed,
     the engine takes a mesh over every local device of its kind (the
@@ -255,9 +270,9 @@ class Engine:
         self.mesh = mesh
         if dtype is None:
             dtype = torch.float32 if self.device.type == "cuda" else torch.float64
-        if self.device.type == "cuda" and dtype != torch.float32:
-            raise TypeError("the CUDA kernels run float32")
         self.dtype = dtype
+        # The scan engine's threefry roots (the JAX Engine's keys).
+        self.search_key, self.final_key = stream_keys(self.main_seed)
         self.retirement_years = int(self.config.retirement_years)
         self.statics = statics_from_config(self.config)
         self.params = SimParams.from_config(
@@ -268,6 +283,42 @@ class Engine:
             self.config.Nickname, self.device,
             f" (mesh of {mesh.size} shards)" if mesh else "", self.main_seed,
         )
+
+    def _key(self, stream: str):
+        if stream == "search":
+            return self.search_key
+        if stream == "final":
+            return self.final_key
+        raise ValueError(f"Unknown seed stream '{stream}'")
+
+    _BACKENDS = ("auto", "scan", "pallas", "pallas_sharded")
+
+    def _validate_backend(self, backend: str, kind: str) -> str:
+        if backend not in self._BACKENDS:
+            raise ValueError(
+                f"Unknown {kind} backend {backend!r}; expected one of "
+                f"{self._BACKENDS}"
+            )
+        if backend == "pallas_sharded" and self.mesh is None:
+            raise ValueError(
+                "backend 'pallas_sharded' needs an Engine mesh "
+                "(Engine(..., mesh=make_mesh()))"
+            )
+        return backend
+
+    def _resolve_backend(self, backend: Optional[str], kind: str) -> str:
+        """``backend``, else ``MCRT_PROBE_BACKEND`` / ``MCRT_RUN_BACKEND``,
+        else auto: the scan for a float64 engine on the card (the kernels
+        run float32), otherwise the kernels (their plain versions on the
+        CPU), sharded over the Engine's mesh when it has one."""
+        backend = self._validate_backend(
+            backend or os.environ.get(f"MCRT_{kind.upper()}_BACKEND", "auto"),
+            kind)
+        if backend != "auto":
+            return backend
+        if self.device.type == "cuda" and self.dtype != torch.float32:
+            return "scan"
+        return "pallas" if self.mesh is None else "pallas_sharded"
 
     def _t_scan(self, max_working_months: int) -> int:
         horizon = max_working_months + self.retirement_years * MONTHS_PER_YEAR
@@ -298,9 +349,13 @@ class Engine:
         num_simulations: int,
         stream: str = "search",
         horizon_months: Optional[int] = None,
+        backend: Optional[str] = None,
     ) -> List[float]:
         """Success probability (percent) for each working-month candidate;
-        candidates share their shocks (common random numbers)."""
+        candidates share their shocks (common random numbers). ``backend``
+        (``_BACKENDS``, default ``MCRT_PROBE_BACKEND`` or auto): "pallas"
+        the probe kernel on one device, "pallas_sharded" over the mesh,
+        "scan" the threefry scan of ``_probe_scan``."""
         months = [int(m) for m in months]
         if not months:
             return []
@@ -314,12 +369,17 @@ class Engine:
         n_total = int(num_simulations)
         if n_total < 1:
             raise ValueError(f"num_simulations must be >= 1, got {n_total}")
+        t_scan = self._t_scan(int(horizon_months or max(months)))
+        probe_backend = self._resolve_backend(backend, "probe")
         t_start = time.perf_counter()
         out: List[float] = []
         for i in range(0, len(months), PROBE_WIDTH):
             chunk = months[i : i + PROBE_WIDTH]
             padded = chunk + [chunk[-1]] * (PROBE_WIDTH - len(chunk))
-            if self.mesh is None:
+            if probe_backend == "scan":
+                counts, simulated = self._probe_scan(padded, stream, n_total,
+                                                     t_scan)
+            elif probe_backend == "pallas":
                 counts, simulated = self._probe_counts(padded, stream, n_total)
             else:
                 counts, simulated = self._probe_counts_mesh(padded, stream,
@@ -328,10 +388,64 @@ class Engine:
             pct = counts.astype(np.float64) / simulated * 100.0
             out.extend(float(v) for v in pct[: len(chunk)])
         log.debug(
-            "phase=probe device=%s candidates=%d paths=%d: %.3f s",
-            self.device, len(months), n_total, time.perf_counter() - t_start,
+            "phase=probe backend=%s device=%s candidates=%d paths=%d: %.3f s",
+            probe_backend, self.device, len(months), n_total,
+            time.perf_counter() - t_start,
         )
         return out
+
+    # ------------------------------------------------------------------
+    # the scan backend (threefry keys, the plain loop's month body)
+    # ------------------------------------------------------------------
+    def _scan_shards(self, n: int) -> Tuple[int, Tuple[Shard, ...]]:
+        """Rows per shard and this process's shards of an n-path scan: one
+        shard of n rows without a mesh; over a mesh its plan's shards
+        (``PathMesh.plan``: whole 4096-path blocks of consecutive global
+        paths, ``paths`` of them real)."""
+        if self.mesh is None:
+            return n, (Shard(self.device, 0, n, 0),)
+        plan = self.mesh.plan(n)
+        return plan.local_pad, plan.shards
+
+    def _scan_kwargs(self, n: int, shard: Shard) -> dict:
+        return dict(n_paths=n, retirement_years=self.retirement_years,
+                    dtype=self.dtype, antithetic=self.statics.antithetic,
+                    jumps=self.statics.jumps, mortality=self.statics.mortality,
+                    row_offset=shard.start, device=shard.device)
+
+    def _probe_scan(self, padded: List[int], stream: str, n_total: int,
+                    t_scan: int):
+        """Survivors per candidate over exactly ``n_total`` paths of the
+        threefry scan (the JAX ``_probe_impl``: every candidate on the
+        stream's same keys), counted exactly; over a mesh each shard draws
+        its own global rows and the counts are summed."""
+        per, shards = self._scan_shards(n_total)
+        parts = []
+        for s in shards:
+            rows = scan_rows(self.params, padded, self._key(stream),
+                             t_scan=t_scan, **self._scan_kwargs(per, s))
+            parts.append((rows["success"][:, :s.paths] > 0.5).sum(dim=1))
+        counts = sum(p.cpu() for p in parts)
+        if self.mesh is not None and self.mesh.grouped:
+            counts = distributed.all_reduce(counts, "sum")
+        return counts.numpy(), n_total
+
+    def _full_scan(self, working_months: int, n: int, stream: str,
+                   traj_len: int) -> dict:
+        """The tracked threefry scan (the JAX ``_run_impl``'s
+        ``simulate_paths``) as the full kernel's dict on this engine's
+        device; over a mesh each shard draws its own global rows and the
+        shards' outputs are gathered in global order, so every field
+        equals the mesh-less scan's."""
+        per, shards = self._scan_shards(n)
+        t_scan = self._t_scan(working_months)
+        outs = [scan_rows(self.params, [working_months], self._key(stream),
+                          t_scan=t_scan, traj_len=traj_len,
+                          **self._scan_kwargs(per, s)) for s in shards]
+        if self.mesh is None:
+            return outs[0]
+        return {name: gather_paths([o[name] for o in outs], self.mesh)[:n]
+                for name in outs[0]}
 
     def _probe_counts(self, padded: List[int], stream: str, n_total: int):
         """Survivors per candidate over exactly ``n_total`` paths, in
@@ -374,11 +488,13 @@ class Engine:
     # ------------------------------------------------------------------
     def run(
         self, working_months: int, num_simulations: int, stream: str = "final",
-        reduced: bool = False,
+        backend: Optional[str] = None, reduced: bool = False,
     ) -> RunResult:
         """One full-statistics batch. ``reduced=True`` keeps the per-path
         vectors on the device and reduces the dashboard's histograms there
-        too; the host gets the tables and bins only."""
+        too; the host gets the tables and bins only. ``backend`` as in
+        :meth:`probe` (default ``MCRT_RUN_BACKEND`` or auto); the scan
+        never chunks."""
         working_months = int(working_months)
         if working_months < 0:
             raise ValueError(f"working_months must be >= 0, got {working_months}")
@@ -389,12 +505,20 @@ class Engine:
             np.random.default_rng(self.main_seed).choice(n, size=k, replace=False),
             dtype=torch.int64, device=self.device,
         )
-        if self.dtype == torch.float32 and (self.mesh is not None
-                                            or n > max_device_paths()):
+        run_backend = self._resolve_backend(backend, "run")
+        if run_backend == "pallas" and self.mesh is not None:
+            # The kernels on this engine's device alone.
+            single = copy.copy(self)
+            single.mesh = None
+            return single.run(working_months, n, stream, "pallas", reduced)
+        if run_backend != "scan" and self.dtype == torch.float32 and (
+                self.mesh is not None or n > max_device_paths()):
             return self._run_banded(working_months, n, stream, reduced,
                                     traj_len, sample_idx)
         t_start = time.perf_counter()
-        if self.mesh is None:
+        if run_backend == "scan":
+            full = self._full_scan(working_months, n, stream, traj_len)
+        elif self.mesh is None:
             full = simulate_full(
                 self._pack(working_months, stream), self.statics,
                 self.retirement_years, n, traj_len,
@@ -416,9 +540,9 @@ class Engine:
             s = {name: v.cpu().numpy() for name, v in summary._asdict().items()}
         host = _host_vectors(None if reduced else full)
         log.info(
-            "phase=final_run device=%s paths=%d months=%d reduced=%s: %.3f s",
-            self.device, n, working_months, reduced,
-            time.perf_counter() - t_start,
+            "phase=final_run backend=%s device=%s paths=%d months=%d "
+            "reduced=%s: %.3f s", run_backend, self.device, n, working_months,
+            reduced, time.perf_counter() - t_start,
         )
         return self._result(working_months, n, host, s, bins)
 

@@ -16,13 +16,16 @@ it. Launches are asynchronous on the card, so the host packs and launches
 chunk i+1 before it copies chunk i's table back (an in-flight window of
 ``MCRT_GRID_WINDOW`` chunks).
 
+``run_scenario_grid(backend="scan")`` runs JAX's scan branch instead:
+float32 threefry scans of every row on shared draws.
+
 ``run_scenario_batch`` (JAX lines 74-161) takes a batch whose rows may mix
 tax systems, crashes and longevity: JAX runs it on its scan engine, which
-keeps that structure as per-row data. The port has no scan engine, so it
-groups the rows by ``Statics`` and launches each group on its own build of
-the grid kernel. The draws depend only on (seed, block, month, lane), and a
-disabled feature compiles out without moving them, so the groups share
-their shocks as one launch's rows would.
+keeps that structure as per-row data. The port groups the rows by
+``Statics`` and launches each group on its own build of the grid kernel.
+The draws depend only on (seed, block, month, lane), and a disabled
+feature compiles out without moving them, so the groups share their
+shocks as one launch's rows would.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 from ..config import Config
 from ..models.retirement import stack_params
 from ..ops.quantiles import exact_quantiles
+from ..ops.shocks import stream_keys
 from ..parallel.mesh import PathMesh, mesh_device
 from .cuda_kernel import (
     Statics,
@@ -47,6 +51,7 @@ from .cuda_kernel import (
     require_device,
     statics_from_config,
 )
+from .kernel import scan_rows
 from .sharded import grid_raw_sharded
 
 __all__ = [
@@ -144,6 +149,7 @@ def run_scenario_grid(
     device="cuda",
     mesh: Optional[PathMesh] = None,
     progress_callback: Optional[Callable[[dict], None]] = None,
+    backend: Optional[str] = None,
 ) -> ScenarioBatchResult:
     """Serve a whole scenario grid: chunked launches + progress.
 
@@ -156,6 +162,12 @@ def run_scenario_grid(
     ``progress_callback`` receives a ``grid_chunk`` event (``done``,
     ``total``, ``elapsed_s``) after each chunk is collected. Shocks are
     shared across the WHOLE grid, so chunking preserves CRN.
+
+    ``backend`` (default ``MCRT_GRID_BACKEND``, else "auto"): "pallas" the
+    grid kernel on one device, "pallas_sharded" over ``mesh``, "scan" the
+    JAX scan branch (float32 threefry scans of every row on shared draws,
+    on ``device``, the mesh unused); "auto" is "pallas_sharded" with a
+    mesh and "pallas" without, on either device.
     """
     configs = list(configs)
     working_months = [int(m) for m in working_months]
@@ -168,6 +180,14 @@ def run_scenario_grid(
     statics = grid_statics(configs)  # raises on mixed structure
     device = mesh_device(mesh, device)
     dtype = torch.float32 if device.type == "cuda" else torch.float64
+    if backend is None:
+        backend = os.environ.get("MCRT_GRID_BACKEND", "auto")
+    if backend == "auto":
+        backend = "pallas" if mesh is None else "pallas_sharded"
+    if backend not in ("scan", "pallas", "pallas_sharded"):
+        raise ValueError(f"unknown grid backend {backend!r}")
+    if backend == "pallas_sharded" and mesh is None:
+        raise ValueError("grid backend 'pallas_sharded' needs a mesh")
     R = configs[0].retirement_years
     n = int(num_simulations)
     if n < 1:
@@ -185,6 +205,9 @@ def run_scenario_grid(
     chunk_size = max(1, min(chunk_size, cell_budget // n))
     window = max(0, int(os.environ.get("MCRT_GRID_WINDOW", "2")))
     stream_seed = _grid_stream_seed(seed)
+    # The scan's key and its one horizon for every chunk.
+    final_key = stream_keys(seed)[1]
+    horizon = max(working_months) + 12 * R
 
     total = len(configs)
     done = 0
@@ -216,7 +239,16 @@ def run_scenario_grid(
         params = stack_params(chunk_cfgs)
         check_grid_statics(params, statics)
         months = working_months[i : i + chunk_size]
-        if mesh is None:
+        if backend == "scan":
+            # JAX's scan branch (its run_scenario_batch, float32): every
+            # row's own parameters and W on the final stream's draws.
+            out = scan_rows(params, months, final_key, n_paths=n,
+                            t_scan=horizon, retirement_years=R,
+                            dtype=torch.float32,
+                            antithetic=statics.antithetic, jumps=statics.jumps,
+                            mortality=statics.mortality, device=device)
+            succ, fin = out["success"], out["final_balance"]
+        elif backend == "pallas":
             out = grid(pack_grid(params, stream_seed, months, R, dtype=dtype,
                                  device=device), statics, R, n)
             succ, fin = out.success, out.final_balance

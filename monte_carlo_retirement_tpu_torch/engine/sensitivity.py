@@ -246,9 +246,11 @@ def sensitivity_fd(
     device="cuda",
     mesh=None,
     progress_callback=None,
+    backend: Optional[str] = None,
 ) -> List[SensitivityRow]:
     """Central finite differences over a CRN scenario grid on ``device``
-    (over ``mesh``'s shards when given, as ``run_scenario_grid`` takes it).
+    (over ``mesh``'s shards when given, on ``backend``, as
+    ``run_scenario_grid`` takes them).
 
     One grid request of ``1 + 2K`` rows (base + theta +/- h per parameter;
     boundary-pinned parameters probe one-sided). Derivatives use the actual
@@ -316,6 +318,7 @@ def sensitivity_fd(
         device=device,
         mesh=mesh,
         progress_callback=progress_callback,
+        backend=backend,
     )
 
     p = np.asarray(res.success_probability, dtype=float)

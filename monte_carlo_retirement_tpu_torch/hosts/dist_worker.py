@@ -82,11 +82,12 @@ def describe(res) -> dict:
 
 def run_workload(config: Config, *, search_paths: int, paths: int,
                  chunked_paths: int = 0, chunk_budget: int = 4096,
-                 device="cpu", mesh: Optional[PathMesh] = None) -> dict:
+                 device="cuda", mesh: Optional[PathMesh] = None) -> dict:
     """The search, the final run (raw and reduced) and, with
     ``chunked_paths``, a reduced run chunked at ``chunk_budget`` paths per
     shard — in float32 (the kernels' type, and the band search's) over
-    ``mesh``, or mesh-less for the single-process answer."""
+    ``mesh``, or mesh-less for the single-process answer, on ``device``
+    (the card unless the caller passes ``"cpu"``)."""
     eng = Engine(config, dtype=torch.float32, device=device, mesh=mesh)
     start = int(config.starting_working_months_search)
     horizon = start + MAX_SEARCH_YEARS * MONTHS_PER_YEAR

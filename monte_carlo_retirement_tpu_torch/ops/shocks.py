@@ -1,6 +1,7 @@
-"""The port's counter-based shock stream (Philox4x32-10), in torch.
+"""The port's counter-based shock streams, in torch: the kernels' Philox
+stream and, at the end, the scan engine's threefry draws.
 
-Every normal is a pure function of (stream seed, global path block, month,
+Every Philox normal is a pure function of (stream seed, global path block, month,
 lane): the key is ``(stream_seed, global_block)`` with
 ``global_block = path // 4096 + block_offset`` and the counter is
 ``(month, path % 4096, 0, 0)``. That keeps the JAX Pallas kernel's seeding
@@ -39,7 +40,11 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+from ..constants import MONTHS_PER_YEAR
+from . import threefry
 
 BLOCK_PATHS = 4096  # paths per Philox key (one key per 4096-path block)
 
@@ -196,3 +201,126 @@ def gompertz_remaining_months(u, g0, b12, cap, working_months):
     t = b12 * torch.where(g_ret > 0, t_high, t_low)
     d = torch.minimum(t, torch.clamp(cap - w_f, min=0.0))
     return torch.where(b12 > 0, d, torch.full_like(d, float("inf")))
+
+
+# ---------------------------------------------------------------------------
+# The scan engine's draws: threefry keys, one per absolute month (the JAX
+# package's ``ops/shocks.py``). A month's draw is one array over the paths,
+# row p for path p, so a path's shocks are a pure function of (stream key,
+# month, path) whatever the batch size; ``row_offset`` draws the rows of a
+# shard (global paths ``row_offset ..``) alone.
+# ---------------------------------------------------------------------------
+SQRT_MONTHS = MONTHS_PER_YEAR ** 0.5
+
+# The crash and longevity streams fold at offsets disjoint from the months,
+# so the base shocks are the same with either rule on or off.
+JUMP_FOLD_OFFSET = 1 << 20
+MORT_FOLD_OFFSET = 1 << 21
+
+
+def stream_keys(main_seed: int) -> Tuple[threefry.Key, threefry.Key]:
+    """The two root keys (search, final): ``fold_in(PRNGKey(seed), 0)`` and
+    ``fold_in(..., 1)`` (the JAX ``stream_keys``). A seed outside [0,
+    2**63) folds its full entropy through numpy's SeedSequence, so distinct
+    huge seeds keep distinct streams."""
+    s = int(main_seed)
+    if not 0 <= s < (1 << 63):
+        s = int(np.random.SeedSequence(s).generate_state(1, np.uint64)[0] >> 1)
+    root = threefry.prng_key(s)
+    return threefry.fold_in(root, 0), threefry.fold_in(root, 1)
+
+
+def _paired_rows(n_paths: int, row_offset: int, antithetic: bool, device):
+    """Draw rows and pairing signs of the paths ``row_offset ..
+    row_offset + n_paths``: path p reads row p (iid) or row p // 2, negated
+    on odd p (antithetic; a trailing odd path stays an unpaired +z draw).
+    Returns (first row, row count, index into the drawn rows or None, odd
+    mask or None)."""
+    if not antithetic:
+        return int(row_offset), int(n_paths), None, None
+    p = torch.arange(int(row_offset), int(row_offset) + int(n_paths),
+                     dtype=torch.int64, device=device)
+    first = int(row_offset) // 2
+    last = (int(row_offset) + int(n_paths) - 1) // 2
+    return first, last - first + 1, p // 2 - first, (p % 2) == 1
+
+
+def monthly_shocks(stream_key, month: int, n_paths: int, rho, dtype,
+                   antithetic: bool = False, row_offset: int = 0,
+                   device="cpu"):
+    """Standard-normal shocks (z_equity, z_inflation, z_premium) of one
+    month (the JAX ``monthly_shocks``): ``normal(fold_in(key, month), (n,
+    3))``, the inflation shock rho-mixed as ``rho * z_eq + sqrt(max(0, 1 -
+    rho^2)) * z_ind``; with ``antithetic`` path 2i+1 takes the negated row
+    of path 2i. ``rho`` is a float or a tensor that broadcasts over the
+    paths."""
+    return _mix(monthly_normals(stream_key, month, n_paths, dtype, antithetic,
+                                row_offset, device), rho)
+
+
+def monthly_normals(stream_key, month: int, n_paths: int, dtype,
+                    antithetic: bool = False, row_offset: int = 0,
+                    device="cpu") -> torch.Tensor:
+    """The month's three unmixed normals (z_eq, z_ind, z_prem), (3, n)."""
+    first, rows, idx, odd = _paired_rows(n_paths, row_offset, antithetic,
+                                         device)
+    z = threefry.normal(threefry.fold_in(stream_key, month), (rows, 3), dtype,
+                        row_offset=first, device=device)
+    if idx is not None:
+        z = torch.where(odd[:, None], -z[idx], z[idx])
+    return z.t()
+
+
+def _mix(z: torch.Tensor, rho):
+    rho = torch.as_tensor(rho, dtype=z.dtype, device=z.device)
+    z_inf = rho * z[0] + torch.sqrt(torch.clamp(1.0 - rho * rho, min=0.0)) * z[1]
+    return z[0], z_inf, z[2]
+
+
+def monthly_jump_draws(stream_key, month: int, n_paths: int, dtype,
+                       antithetic: bool = False, row_offset: int = 0,
+                       device="cpu"):
+    """Crash draws of one month (the JAX ``monthly_jump_draws``): u ~
+    U[0, 1) and z ~ N(0, 1) from the two halves of ``split(fold_in(key,
+    JUMP_FOLD_OFFSET + month))``; antithetic pairs take ``1 - u`` and
+    ``-z``."""
+    ku, kz = threefry.split(threefry.fold_in(stream_key,
+                                             JUMP_FOLD_OFFSET + int(month)))
+    first, rows, idx, odd = _paired_rows(n_paths, row_offset, antithetic,
+                                         device)
+    u = threefry.uniform(ku, (rows,), dtype, row_offset=first, device=device)
+    z = threefry.normal(kz, (rows,), dtype, row_offset=first, device=device)
+    if idx is not None:
+        u, z = u[idx], z[idx]
+        u = torch.where(odd, 1.0 - u, u)
+        z = torch.where(odd, -z, z)
+    return u, z
+
+
+def threefry_mortality_uniform(stream_key, n_paths: int, dtype,
+                               antithetic: bool = False, row_offset: int = 0,
+                               device="cpu") -> torch.Tensor:
+    """The scan stream's longevity percentile, one uniform per path, from
+    ``fold_in(key, MORT_FOLD_OFFSET)``: the JAX ``ops/shocks.py::
+    mortality_uniform`` (``mortality_uniform`` above is the Philox
+    stream's); antithetic pairs take ``1 - u``."""
+    key = threefry.fold_in(stream_key, MORT_FOLD_OFFSET)
+    first, rows, idx, odd = _paired_rows(n_paths, row_offset, antithetic,
+                                         device)
+    u = threefry.uniform(key, (rows,), dtype, row_offset=first, device=device)
+    if idx is not None:
+        u = u[idx]
+        u = torch.where(odd, 1.0 - u, u)
+    return u
+
+
+def monthly_gross_factors(z_eq, z_inf, z_prem, mu1, sigma1, mu_inf,
+                          sigma_inf, mu_prem, sigma_prem):
+    """Monthly gross factors (asset 1, inflation, asset 2) from annual
+    lognormal parameters: ``exp(mu / 12 + sigma / sqrt(12) * z)``, asset 2
+    compounding inflation times its premium (the JAX
+    ``monthly_gross_factors``)."""
+    g1 = torch.exp(mu1 / MONTHS_PER_YEAR + sigma1 / SQRT_MONTHS * z_eq)
+    gi = torch.exp(mu_inf / MONTHS_PER_YEAR + sigma_inf / SQRT_MONTHS * z_inf)
+    gp = torch.exp(mu_prem / MONTHS_PER_YEAR + sigma_prem / SQRT_MONTHS * z_prem)
+    return g1, gi, gi * gp

@@ -101,7 +101,7 @@ def reference():
     """The same workload in this process, mesh-less."""
     torch.set_num_threads(2)
     cfg = dist_worker.load_config(os.path.join(REPO, "config.json"), OVERRIDES)
-    answers = dist_worker.run_workload(cfg, **WORKLOAD)
+    answers = dist_worker.run_workload(cfg, device="cpu", **WORKLOAD)
     raw = Engine(cfg, dtype=torch.float32, device="cpu").run(
         answers["search"]["months"], PATHS)
     return answers, raw

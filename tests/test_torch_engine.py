@@ -132,9 +132,10 @@ def test_port_never_imports_jax():
         "from monte_carlo_retirement_tpu_torch.engine.simulator import "
         "RetirementMonteCarloSimulator\n"
         "from monte_carlo_retirement_tpu_torch.hosts import (\n"
-        "    bench, cli, correlation_sweep, edge_sweep, fuzz, grid, openapi,\n"
-        "    optimize, payload, plotting, scenario_grid_demo, schemas,\n"
-        "    sensitivity, server)\n"
+        "    bench, cli, correlation_sweep, cross_backend_check, edge_sweep,\n"
+        "    fuzz, grid, openapi, optimize, payload, plotting, scaling_demo,\n"
+        "    scenario_grid_demo, schemas, sensitivity, server)\n"
+        "from monte_carlo_retirement_tpu_torch.ops import threefry\n"
         "from monte_carlo_retirement_tpu_torch.engine import (\n"
         "    optimize as opt, scenario_batch, sensitivity as sens)\n"
         f"cfg = Config(**{TINY!r})\n"
@@ -150,6 +151,10 @@ def test_port_never_imports_jax():
         " device='cpu')\n"
         "opt.optimize_param(cfg, 6, 'allocation_inv1_pct', num_paths=64,"
         " points=3, rounds=1, device='cpu')\n"
+        "sim.engine.probe([0, 6], 64, backend='scan')\n"
+        "sim.engine.run(6, 64, backend='scan')\n"
+        "scenario_batch.run_scenario_grid([cfg], [6], 64, device='cpu',"
+        " backend='scan')\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
         "or k == 'monte_carlo_retirement_tpu' "
         "or k.startswith('monte_carlo_retirement_tpu.')]\n"

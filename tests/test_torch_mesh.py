@@ -257,7 +257,7 @@ def test_engine_mesh_search_equals_meshless():
     cfg = _config(retirement_years=1, initial_balance=60_000.0,
                   monthly_contribution=2_000.0, monthly_expenses=9_000.0,
                   target_probability=90.0)
-    kw = dict(search_paths=2 * BLOCK_PATHS, paths=N)
+    kw = dict(search_paths=2 * BLOCK_PATHS, paths=N, device="cpu")
     got = dist_worker.run_workload(cfg, mesh=_mesh(2), **kw)
     want = dist_worker.run_workload(cfg, **kw)
     assert got == want
