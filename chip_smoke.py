@@ -165,6 +165,23 @@ result):
      kernel launched), and one float32 scan probe at phase 6's probe shape;
      (d) hosts/cross_backend_check.py: its three cases within max(3 sigma,
      0.5) points; (e) hosts/scaling_demo.py's lines.
+ 15. the scan routes of the analyses (JAX's own routes, plain torch, no
+     kernel launched): (a) run_scenario_batch(backend="scan") over six rows
+     that share retirement_years and one pension stream (config.json; inv1
+     on the annual mark-to-market system at 0.25; the pension
+     fixed-nominal; the pension capped; + crashes; + longevity), at W
+     spread around the working month: float64 at 4,113 paths, R = 10, on
+     the card against the same call on the CPU (every row's success equal,
+     every statistic within 1e-12 relative), then float32 at 1,048,576
+     paths, R = 50: each row within max(3 sigma, 0.5) points of the same
+     row on the grid-kernel route (one launch per Statics), both walls;
+     (b) sensitivity_ad(backend="scan") of the 8 default parameters: float64
+     at 4,113 paths on the card against the CPU (the value and every
+     gradient within 1e-10 relative), then float32 at 1,048,576 paths,
+     config.json, W=231: every gradient finite, d/d expenses < 0 < d/d
+     equity mean, both within 5% of the central difference of
+     sensitivity_fd(backend="scan") at the same paths, its wall beside
+     phase 8f's.
 
 The kernels' line comes before the last two: {"kernels": [...]}, one row
 per kernel with its launches on the main path (phase 5), the grid path
@@ -244,6 +261,7 @@ ALL_ON = dict(
     spending_guardrails=GUARDRAILS, market_crashes=CRASHES, longevity=LONGEVITY,
 )
 AD_PATHS = 2**20  # /api/sensitivity's largest ad_num_paths
+N_FULL_15 = 2**20  # phase 15a's float32 batch
 N_11A = 4 * 2**20 + 1_000  # the last chunk of 2**20 holds a partial block
 N_11B = N_FULL + 1_000
 BLOCKS_11B = 63  # 4 chunks of an odd number of 4096-path blocks
@@ -277,6 +295,26 @@ BIG_14B = 1e9  # the conditioning bound of ROADMAP C
 # (tests/test_torch_scan_search.py holds the port's CPU scan to it).
 JAX_CPU_ANSWER = (234, 97.667, 98.1)
 MONTHS_14C = 6  # the scan's month at 1M paths vs the kernels' (phase 5b)
+# Phase 15: the scan routes of run_scenario_batch and sensitivity_ad. Six
+# rows with config.json's one pension stream (the rent pruned); "pension"
+# updates that stream.
+ROWS_15 = (
+    ("config.json", {}),
+    ("inv1 annual 0.25", dict(inv1_use_realized_gains_tax_system=False,
+                              inv1_annual_tax_on_gains_rate=0.25)),
+    ("fixed-nominal pension", dict(pension=dict(inflation_indexed=False))),
+    ("capped pension", dict(pension=dict(duration_years=3))),
+    ("+ crashes", dict(market_crashes=CRASHES)),
+    ("+ longevity", dict(longevity=LONGEVITY)),
+)
+OFFSETS_15 = (0, -6, 6, 0, -12, 12)  # each row's W around the phase's month
+# R = 10 from age 59 at W = 228: the pension starts at 65 and its capped
+# form ends at 68, inside the horizon; expenses at which rows fail and
+# succeed (success 0.4-92% over the rows on the CPU).
+W_15_PARITY = 228
+EXPENSES_15_PARITY = 20_000.0
+PARITY_15A = 1e-12  # card vs CPU, float64 batch statistics (relative)
+PARITY_15B = 1e-10  # card vs CPU, float64 AD value and gradients
 
 
 def _card_line() -> str:
@@ -2385,6 +2423,170 @@ def phase_scan(report):
     print(f"[14e] {time.perf_counter() - t0:.1f} s")
 
 
+def _row_15(over, **extra):
+    from monte_carlo_retirement_tpu_torch.config import Config
+
+    over = dict(over)
+    pension = over.pop("pension", {})
+    raw = _raw_config(**over, **extra)
+    raw["other_income_streams"][0].update(pension)
+    return Config(**raw)
+
+
+def _rel(a, b):
+    """|a - b| relative to |b|, or to $1 / 1 where |b| is smaller."""
+    import numpy as np
+
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)))
+
+
+def phase_scan_routes(report):
+    """15: run_scenario_batch and sensitivity_ad on the scan (JAX's routes;
+    plain torch, no kernel launch)."""
+    import numpy as np
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import _build
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine.scenario_batch import (
+        run_scenario_batch,
+    )
+    from monte_carlo_retirement_tpu_torch.engine.sensitivity import (
+        sensitivity_ad,
+        sensitivity_fd,
+    )
+
+    out = report["scan_routes"] = {}
+
+    def no_kernel(tag, plain_ok=()):
+        ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+        if any(ran.values()) or any(v for k, v in plain.items()
+                                    if k not in plain_ok):
+            raise AssertionError(f"[{tag}] not the scan: {ran} {plain}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # 15a: the batch's scan route.
+    cfgs = [_row_15(over, retirement_years=R_14B,
+                    monthly_expenses=EXPENSES_15_PARITY)
+            for _, over in ROWS_15]
+    months = [W_15_PARITY + d for d in OFFSETS_15]
+    ck.reset_counts()
+    (card, t_card), (cpu, t_cpu) = (timed(lambda: run_scenario_batch(
+        cfgs, months, N_14B, seed=SEED, device=dev, backend="scan",
+        dtype=torch.float64)) for dev in ("cuda", "cpu"))
+    no_kernel("15a")
+    # Survivor counts: the card divides by n as a product with 1 / n, so a
+    # percentage may differ from the CPU's in its last bit.
+    survivors = [np.rint(r.success_probability * N_14B / 100.0).astype(int)
+                 for r in (card, cpu)]
+    same = np.array_equal(*survivors)
+    worst = max(_rel(a, b) for a, b in zip(card, cpu))
+    out["batch_f64"] = {"survivors_equal": same, "stats_rel": worst,
+                        "survivors": survivors[1].tolist()}
+    print(f"[15a] run_scenario_batch(backend='scan') float64, {len(cfgs)} rows "
+          f"(" + "; ".join(label for label, _ in ROWS_15) + f"), {N_14B:,} "
+          f"paths, R={R_14B}, W={months}: card vs CPU survivors equal {same} "
+          f"({survivors[1].tolist()}), statistics (success % and sigma too) "
+          f"max rel {worst:.2e} (bound {PARITY_15A:.0e}); card {t_card:.1f} s, "
+          f"CPU {t_cpu:.1f} s")
+    if not (same and worst <= PARITY_15A):
+        raise AssertionError("[15a] the card's scan batch differs from the CPU's")
+
+    cfgs = [_row_15(over) for _, over in ROWS_15]
+    months = [GRID_W + d for d in OFFSETS_15]
+    groups = len({ck.statics_from_config(c) for c in cfgs})
+    t0 = time.perf_counter()
+    _, built = _build.build_many(list({ck.statics_from_config(c): 0
+                                       for c in cfgs}))
+    print(f"[15a] {built} more month-loop libraries for the rows' {groups} "
+          f"Statics in {time.perf_counter() - t0:.1f} s")
+    ck.reset_counts()
+    scan, t_scan = timed(lambda: run_scenario_batch(
+        cfgs, months, N_FULL_15, seed=SEED, device="cuda", backend="scan"))
+    no_kernel("15a")
+    ck.reset_counts()
+    kern, t_kern = timed(lambda: run_scenario_batch(
+        cfgs, months, N_FULL_15, seed=SEED, device="cuda"))
+    ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+    if ran.get("grid") != groups or any(plain.values()):
+        raise AssertionError(f"[15a] the grid-kernel route: {ran} {plain}")
+    out["batch_f32"] = rows = []
+    ok = True
+    for (label, _), w, a, b in zip(ROWS_15, months, scan.success_probability,
+                                   kern.success_probability):
+        p = (a + b) / 200.0
+        se3 = 3.0 * math.sqrt(2.0 * p * (1.0 - p) / N_FULL_15) * 100.0
+        row_ok = abs(a - b) <= max(se3, 0.5)
+        ok &= row_ok
+        rows.append({"row": label, "W": w, "scan_pct": a, "kernel_pct": b,
+                     "three_sigma": se3})
+        print(f"[15a]   {label:22s} W={w}  scan {a:8.3f}%  kernel {b:8.3f}%  "
+              f"diff {a - b:7.3f}  3 sigma {se3:6.3f}  "
+              f"{'ok' if row_ok else 'MISMATCH'}")
+    out.update(batch_scan_s=t_scan, batch_kernel_s=t_kern)
+    print(f"[15a] float32, {N_FULL_15:,} paths, R=50: scan route wall "
+          f"{t_scan:.2f} s (no kernel launched), grid-kernel route wall "
+          f"{t_kern:.2f} s ({groups} grid launches)")
+    if not ok:
+        raise AssertionError("[15a] a row is beyond max(3 sigma, 0.5) points")
+
+    # 15b: sensitivity_ad's scan route.
+    cfg = _config(retirement_years=R_14B, monthly_expenses=EXPENSES_15_PARITY)
+    ck.reset_counts()
+    (card, t_card), (cpu, t_cpu) = (timed(lambda: sensitivity_ad(
+        cfg, W_15_PARITY, num_paths=N_14B, seed=SEED, device=dev,
+        backend="scan", dtype=torch.float64)) for dev in ("cuda", "cpu"))
+    no_kernel("15b", plain_ok=("ad",))
+    names = list(cpu["d_mean_final"])
+    worst = max(_rel(card["mean_final_balance"], cpu["mean_final_balance"]),
+                _rel([card["d_mean_final"][k] for k in names],
+                     [cpu["d_mean_final"][k] for k in names]))
+    out["ad_f64_rel"] = worst
+    print(f"[15b] sensitivity_ad(backend='scan') float64, {N_14B:,} paths, "
+          f"R={R_14B}, W={W_15_PARITY}, {len(names)} parameters: card vs CPU "
+          f"value and gradients max rel {worst:.2e} (bound {PARITY_15B:.0e}); "
+          f"card {t_card:.1f} s, CPU {t_cpu:.1f} s")
+    if not worst <= PARITY_15B:
+        raise AssertionError("[15b] the card's scan AD differs from the CPU's")
+
+    cfg = _config()
+    ck.reset_counts()
+    ad, t_ad = timed(lambda: sensitivity_ad(cfg, GRID_W, num_paths=AD_PATHS,
+                                            seed=SEED, device="cuda",
+                                            backend="scan"))
+    no_kernel("15b", plain_ok=("ad",))
+    checked = ("monthly_expenses", "inv1_returns_mean")
+    ck.reset_counts()
+    fd, t_fd = timed(lambda: sensitivity_fd(
+        cfg, GRID_W, num_paths=AD_PATHS, seed=SEED, params=list(checked),
+        rel_step=0.002, abs_step=0.0005, device="cuda", backend="scan"))
+    no_kernel("15b")
+    fd = {r.param: r.d_mean_final for r in fd}
+    grads = ad["d_mean_final"]
+    out.update(ad_scan_s=t_ad, fd_scan_s=t_fd,
+               ad_over_fd={k: grads[k] / fd[k] for k in checked})
+    print(f"[15b] sensitivity_ad(backend='scan') float32 at {AD_PATHS:,} paths, "
+          f"W={GRID_W}: wall {t_ad:.2f} s (phase 8f's pass on the grid "
+          f"kernel's stream: {report.get('ad_wall_s', float('nan')):.2f} s); "
+          f"mean final balance {ad['mean_final_balance']:.2f}; the scan's CRN "
+          f"central difference of {len(checked)} parameters {t_fd:.2f} s")
+    for name, g in grads.items():
+        extra = (f"  scan FD {fd[name]:>16.6g}  AD/FD {g / fd[name]:.6f}"
+                 if name in fd else "")
+        print(f"[15b]   {name:<32} AD {g:>16.6g}{extra}")
+    close = all(abs(grads[k] / fd[k] - 1.0) <= 0.05 for k in checked)
+    if not (all(math.isfinite(g) for g in grads.values()) and close
+            and grads["monthly_expenses"] < 0 < grads["inv1_returns_mean"]):
+        raise AssertionError("[15b] scan AD gradients are not finite, signed "
+                             "or within 5% of the scan's finite difference")
+
+
 def main() -> int:
     import torch
 
@@ -2404,7 +2606,7 @@ def main() -> int:
     for phase in (phase_build, phase_normals, phase_probe, phase_full,
                   phase_main_path, phase_timings, phase_grid, phase_modes,
                   phase_extensions, phase_server, phase_chunked, phase_mesh,
-                  phase_tools, phase_scan):
+                  phase_tools, phase_scan, phase_scan_routes):
         t0 = time.perf_counter()
         phase(report)
         print(f"--- {phase.__name__}: {time.perf_counter() - t0:.1f} s wall")

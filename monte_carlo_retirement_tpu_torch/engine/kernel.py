@@ -599,13 +599,20 @@ def scan_rows(params, months: Sequence[int], stream_key, *, n_paths: int,
               t_scan: int, retirement_years: int, dtype,
               antithetic: bool = False, jumps: bool = False,
               mortality: bool = False, row_offset: int = 0, device=None,
-              traj_len: int = 0) -> Dict[str, torch.Tensor]:
+              traj_len: int = 0,
+              statics: Optional[Statics] = None) -> Dict[str, torch.Tensor]:
     """The scan of every working-months row of ``months`` on one key's
     shared draws: ``params`` shared by the rows (the vmapped probe,
     ``runner.py::_probe_impl``) or one row each (a stacked batch,
     ``scenario_batch.py::_batch_impl``). Returns the plain loop's dict:
     success (0/1) and final balance (K, n), plus the tracked fields for
-    ``traj_len > 0`` (one row)."""
+    ``traj_len > 0`` (one row).
+
+    ``statics`` (default: :func:`scan_statics` of ``params``) is the loop's
+    structure when the caller fixes it: under ``torch.func.jacfwd`` the
+    leaves that depend on theta carry tangents and cannot be read as
+    flags, so the AD pass derives it once from the base parameters. Its
+    ``antithetic``, ``jumps`` and ``mortality`` then select the draws."""
     device = torch.device(params.initial_balance.device if device is None
                           else device)
     require_device(device)
@@ -613,7 +620,9 @@ def scan_rows(params, months: Sequence[int], stream_key, *, n_paths: int,
     if any(m < 0 for m in months):
         raise ValueError(f"working months must be >= 0: {months}")
     R = int(retirement_years)
-    statics = scan_statics(params, antithetic, jumps, mortality)
+    if statics is None:
+        statics = scan_statics(params, antithetic, jumps, mortality)
+    antithetic, jumps = statics.antithetic, statics.jumps
     packed = Packed(fp=_fparams(params, dtype).to(device).contiguous(),
                     ip=_iparams(months, R, 0, 0, device),
                     n_streams=params.n_streams)
@@ -628,7 +637,8 @@ def simulate_paths(params, working_months, stream_key, *, n_paths: int,
                    t_scan: int, retirement_years: int, traj_len: int, dtype,
                    antithetic: bool = False, jumps: bool = False,
                    mortality: bool = False, row_offset: int = 0,
-                   device=None) -> PathOutputs:
+                   device=None, statics: Optional[Statics] = None
+                   ) -> PathOutputs:
     """Simulate ``n_paths`` lifetimes at ``working_months`` on the scan
     engine's threefry stream ``stream_key`` (the JAX ``simulate_paths``,
     ``engine/kernel.py:124-213``, same arguments and results).
@@ -640,13 +650,15 @@ def simulate_paths(params, working_months, stream_key, *, n_paths: int,
     ``jumps`` and ``mortality`` select the paired sampling, the crash draws
     and the longevity draw. ``row_offset`` simulates the global paths
     ``row_offset ..`` of a larger batch (a shard); ``device`` defaults to
-    the parameters' device.
+    the parameters' device; ``statics`` fixes the loop's structure (see
+    :func:`scan_rows`).
     """
     out = scan_rows(params, [int(working_months)], stream_key,
                     n_paths=n_paths, t_scan=t_scan,
                     retirement_years=retirement_years, dtype=dtype,
                     antithetic=antithetic, jumps=jumps, mortality=mortality,
-                    row_offset=row_offset, device=device, traj_len=traj_len)
+                    row_offset=row_offset, device=device, traj_len=traj_len,
+                    statics=statics)
     if traj_len <= 0:
         return PathOutputs(out["success"][0] > 0.5, out["final_balance"][0],
                            *([None] * 8))

@@ -17,15 +17,19 @@ chunk i+1 before it copies chunk i's table back (an in-flight window of
 ``MCRT_GRID_WINDOW`` chunks).
 
 ``run_scenario_grid(backend="scan")`` runs JAX's scan branch instead:
-float32 threefry scans of every row on shared draws.
+each chunk through ``run_scenario_batch(backend="scan")`` in float32, as
+JAX's grid does.
 
 ``run_scenario_batch`` (JAX lines 74-161) takes a batch whose rows may mix
-tax systems, crashes and longevity: JAX runs it on its scan engine, which
-keeps that structure as per-row data. The port groups the rows by
+tax systems, crashes and longevity. By default the port groups the rows by
 ``Statics`` and launches each group on its own build of the grid kernel.
 The draws depend only on (seed, block, month, lane), and a disabled
 feature compiles out without moving them, so the groups share their
-shocks as one launch's rows would.
+shocks as one launch's rows would. ``backend="scan"`` is JAX's own route
+(``_batch_impl``): threefry scans of every row on the final stream's key,
+with the crash and longevity draws on for the whole batch when any row
+has them (a row without them takes the rules' no-op sentinels), so on
+the same seed every row equals JAX's to round-off.
 """
 
 from __future__ import annotations
@@ -165,9 +169,9 @@ def run_scenario_grid(
 
     ``backend`` (default ``MCRT_GRID_BACKEND``, else "auto"): "pallas" the
     grid kernel on one device, "pallas_sharded" over ``mesh``, "scan" the
-    JAX scan branch (float32 threefry scans of every row on shared draws,
-    on ``device``, the mesh unused); "auto" is "pallas_sharded" with a
-    mesh and "pallas" without, on either device.
+    JAX scan branch (each chunk through ``run_scenario_batch(backend=
+    "scan")`` in float32, on ``device``, the mesh unused); "auto" is
+    "pallas_sharded" with a mesh and "pallas" without, on either device.
     """
     configs = list(configs)
     working_months = [int(m) for m in working_months]
@@ -205,20 +209,20 @@ def run_scenario_grid(
     chunk_size = max(1, min(chunk_size, cell_budget // n))
     window = max(0, int(os.environ.get("MCRT_GRID_WINDOW", "2")))
     stream_seed = _grid_stream_seed(seed)
-    # The scan's key and its one horizon for every chunk.
-    final_key = stream_keys(seed)[1]
-    horizon = max(working_months) + 12 * R
+    horizon = max(working_months) + 12 * R  # the scan's one horizon
 
     total = len(configs)
     done = 0
     t0 = time.perf_counter()
     parts: List[ScenarioBatchResult] = []
-    pending: list = []  # (k, (k, 9) table on the device), oldest first
+    # (k, (k, 9) table on the device, or the scan's result), oldest first
+    pending: list = []
 
     def collect_one():
         nonlocal done
         k, table = pending.pop(0)
-        parts.append(_from_table(table.cpu().numpy()))
+        parts.append(table if isinstance(table, ScenarioBatchResult)
+                     else _from_table(table.cpu().numpy()))
         done += k
         if progress_callback is not None:
             progress_callback(
@@ -240,27 +244,25 @@ def run_scenario_grid(
         check_grid_statics(params, statics)
         months = working_months[i : i + chunk_size]
         if backend == "scan":
-            # JAX's scan branch (its run_scenario_batch, float32): every
-            # row's own parameters and W on the final stream's draws.
-            out = scan_rows(params, months, final_key, n_paths=n,
-                            t_scan=horizon, retirement_years=R,
-                            dtype=torch.float32,
-                            antithetic=statics.antithetic, jumps=statics.jumps,
-                            mortality=statics.mortality, device=device)
-            succ, fin = out["success"], out["final_balance"]
-        elif backend == "pallas":
-            out = grid(pack_grid(params, stream_seed, months, R, dtype=dtype,
-                                 device=device), statics, R, n)
-            succ, fin = out.success, out.final_balance
+            # JAX's scan branch: its run_scenario_batch at its default
+            # float32, every chunk on one horizon.
+            stats = run_scenario_batch(chunk_cfgs, months, n, seed=seed,
+                                       t_scan=horizon, device=device,
+                                       backend="scan", dtype=torch.float32)
         else:
-            out = grid_raw_sharded(params, stream_seed, months, R, n, statics,
-                                   mesh=mesh, dtype=dtype)
-            # The first n paths as the (k, n) table a mesh-less launch
-            # gives, so the reductions see the same layout.
-            succ = out.success[:, :n].contiguous()
-            fin = out.final_balance[:, :n].contiguous()
-        pending.append(
-            (len(chunk_cfgs), _stats_table(_grid_stats(succ, fin, n))))
+            if backend == "pallas":
+                out = grid(pack_grid(params, stream_seed, months, R,
+                                     dtype=dtype, device=device), statics, R, n)
+                succ, fin = out.success, out.final_balance
+            else:
+                out = grid_raw_sharded(params, stream_seed, months, R, n,
+                                       statics, mesh=mesh, dtype=dtype)
+                # The first n paths as the (k, n) table a mesh-less launch
+                # gives, so the reductions see the same layout.
+                succ = out.success[:, :n].contiguous()
+                fin = out.final_balance[:, :n].contiguous()
+            stats = _stats_table(_grid_stats(succ, fin, n))
+        pending.append((len(chunk_cfgs), stats))
         while len(pending) > window:
             collect_one()
     while pending:
@@ -278,19 +280,33 @@ def run_scenario_batch(
     seed: int = 0,
     t_scan: Optional[int] = None,
     device="cuda",
+    backend: Optional[str] = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> ScenarioBatchResult:
     """Simulate every (config, working_months) pair on the grid's shared
     shocks; the rows may mix tax systems, crashes and longevity.
 
     The JAX package's rules hold: ``working_months`` is per scenario, the
     configs share ``retirement_years`` and their pruned income-stream count
-    (``stack_params``), and a batch may not mix ``antithetic`` (the
-    sampling mode pairs blocks). ``t_scan`` sizes the JAX scan; here it is
-    only checked against the longest horizon. Each group of rows that
-    shares its ``Statics`` is one launch of that Statics' grid kernel (its
-    plain version on the CPU); the results come back in the caller's order,
-    each row equal to the same row run alone through
-    :func:`run_scenario_grid`.
+    (``stack_params``), a batch may not mix ``antithetic`` (the sampling
+    mode pairs blocks), and ``t_scan`` (default: the longest horizon) may
+    not fall below the longest horizon. Results come back in the caller's
+    order.
+
+    ``backend`` (default ``MCRT_GRID_BACKEND``, else "auto"):
+
+    * "auto" / "pallas": each group of rows that shares its ``Statics`` is
+      one launch of that Statics' grid kernel (its plain version on the
+      CPU) on the Philox stream of ``run_scenario_grid``, each row equal
+      to the same row run alone there. ``dtype`` (default float32 on the
+      card, float64 on the CPU): the kernel runs in float32 only.
+    * "scan": JAX's ``run_scenario_batch`` (``_batch_impl``): threefry
+      scans of every row at its own W on ``stream_keys(seed)[1]``, over
+      ``t_scan`` months, in ``dtype`` (default float32, JAX's default).
+      The loop keeps tax systems and stream kinds as structure, so the
+      rows run in groups that share them; the crash and longevity draws
+      are on for every group when any row of the batch has them.
+    * "pallas_sharded" raises: a batch has no mesh.
     """
     configs = list(configs)
     if len(working_months) != len(configs):
@@ -299,9 +315,11 @@ def run_scenario_batch(
     stack_params(configs)  # shared retirement_years and stream count
     R = int(configs[0].retirement_years)
     horizon = max(months) + 12 * R
-    if (t_scan or horizon) < horizon:
+    t = t_scan or horizon
+    if t < horizon:
         raise ValueError("t_scan below the longest scenario horizon")
-    if len({bool(c.antithetic) for c in configs}) != 1:
+    anti = {bool(c.antithetic) for c in configs}
+    if len(anti) != 1:
         raise ValueError(
             "all configs in a scenario batch must share 'antithetic' "
             "(sampling mode is compile-time structure)"
@@ -309,27 +327,65 @@ def run_scenario_batch(
     n = int(num_simulations)
     if n < 1:
         raise ValueError(f"num_simulations must be >= 1, got {n}")
-    require_device(device)
+    if backend is None:
+        backend = os.environ.get("MCRT_GRID_BACKEND", "auto")
+    if backend == "auto":
+        backend = "pallas"
+    if backend == "pallas_sharded":
+        raise ValueError("scenario batch backend 'pallas_sharded' needs a "
+                         "mesh; run_scenario_batch runs on one device")
+    if backend not in ("scan", "pallas"):
+        raise ValueError(f"unknown grid backend {backend!r}")
     device = torch.device(device)
-    dtype = torch.float32 if device.type == "cuda" else torch.float64
-    stream_seed = _grid_stream_seed(seed)
+    if backend == "pallas" and device.type == "cuda" and dtype not in (
+            None, torch.float32):
+        raise ValueError(f"the grid kernel runs in float32, not {dtype}; "
+                         "take backend='scan' for another dtype")
+    require_device(device)
     groups: dict = {}
-    for i, cfg in enumerate(configs):
-        groups.setdefault(statics_from_config(cfg), []).append(i)
-    launched = []
-    for statics, rows in groups.items():
-        params = stack_params([configs[i] for i in rows])
-        out = grid(pack_grid(params, stream_seed, [months[i] for i in rows], R,
-                             dtype=dtype, device=device), statics, R, n)
-        launched.append((rows, out))
+    if backend == "scan":
+        dtype = torch.float32 if dtype is None else dtype
+        for i, cfg in enumerate(configs):
+            st = statics_from_config(cfg)
+            key = (st.use_real1, st.use_real2, st.stream_indexed,
+                   st.stream_capped)
+            groups.setdefault(key, []).append(i)
+        final_key = stream_keys(seed)[1]
+        flags = dict(
+            antithetic=anti.pop(),
+            jumps=any(c.market_crashes is not None for c in configs),
+            mortality=any(c.longevity is not None for c in configs),
+        )
+
+        def run_group(rows):
+            out = scan_rows(stack_params([configs[i] for i in rows]),
+                            [months[i] for i in rows], final_key, n_paths=n,
+                            t_scan=t, retirement_years=R, dtype=dtype,
+                            device=device, **flags)
+            return _stats_table(_grid_stats(out["success"],
+                                            out["final_balance"], n))
+    else:
+        if dtype is None:
+            dtype = torch.float32 if device.type == "cuda" else torch.float64
+        stream_seed = _grid_stream_seed(seed)
+        for i, cfg in enumerate(configs):
+            groups.setdefault(statics_from_config(cfg), []).append(i)
+
+        def run_group(rows):
+            statics = statics_from_config(configs[rows[0]])
+            params = stack_params([configs[i] for i in rows])
+            out = grid(pack_grid(params, stream_seed, [months[i] for i in rows],
+                                 R, dtype=dtype, device=device), statics, R, n)
+            # Row by row: each row's reductions see the (1, n) table that
+            # row alone would give.
+            return torch.cat([_stats_table(_grid_stats(
+                out.success[j:j + 1], out.final_balance[j:j + 1], n))
+                for j in range(len(rows))])
+    # Every group launches before the first table is copied back.
+    tables = [(rows, run_group(rows)) for rows in groups.values()]
     table = np.empty((len(configs), 4 + len(GRID_FINAL_PERCENTILES)))
-    for rows, out in launched:
-        # Row by row: each row's reductions see the (1, n) table that row
-        # alone would give.
-        for j, i in enumerate(rows):
-            table[i] = _stats_table(_grid_stats(
-                out.success[j:j + 1], out.final_balance[j:j + 1], n)
-            ).cpu().numpy()[0]
-    log.info("phase=batch device=%s scenarios=%d groups=%d paths=%d",
-             device, len(configs), len(groups), n)
+    for rows, part in tables:
+        table[rows] = part.cpu().numpy()
+    log.info("phase=batch backend=%s device=%s scenarios=%d groups=%d paths=%d",
+             backend, device, len(configs), len(groups), n)
     return _from_table(table)

@@ -12,17 +12,21 @@ package's ``engine/sensitivity.py``, with the port's imports):
   balance / d theta by ``torch.func.jacfwd`` through the plain month loop
   (``engine/kernel.simulate``) on the engine's device, every parameter's
   tangent in one pass. The JAX package differentiates its XLA scan, not a
-  Pallas kernel, so the plain loop is the faithful counterpart. The paths
-  are the grid's (the same Philox stream seed), so AD and the CRN finite
-  difference see the same shocks. Success is a step function (AD sees
-  derivative 0), so AD covers the smooth mean-final-balance metric as an
-  independent cross-check of the FD slopes.
+  Pallas kernel, so the plain loop is the faithful counterpart. By default
+  the paths are the grid kernel's (the same Philox stream seed); with
+  ``backend="scan"`` they are JAX's own (``simulate_paths`` on
+  ``stream_keys(seed)[1]``). Both functions read ``MCRT_GRID_BACKEND``, so
+  AD and the CRN finite difference always see the same shocks. Success is
+  a step function (AD sees derivative 0), so AD covers the smooth
+  mean-final-balance metric as an independent cross-check of the FD
+  slopes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import threading
 from contextlib import contextmanager
 from typing import Dict, List, NamedTuple, Optional, Sequence
@@ -31,7 +35,9 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..constants import MONTHS_PER_YEAR
 from ..models.retirement import SimParams
+from ..ops.shocks import stream_keys
 from . import kernel
 from .cuda_kernel import (
     PLAIN_CALLS,
@@ -468,6 +474,28 @@ def _params_from_theta(config: Config, names: Sequence[str], theta,
     return dataclasses.replace(base, **updates)
 
 
+def _scan_statics_ad(config: Config, names: Sequence[str], device):
+    """The scan's loop structure for AD, fixed outside the transform from
+    the base parameters: the leaves theta moves carry tangents there and
+    cannot be read as flags. JAX's scan takes the annual bill and the
+    glide as data, so they stay on wherever theta can move them: a
+    differentiated annual rate on a mark-to-market asset bills at a zero
+    base rate too, and the glide target moves with the allocation (with
+    ``alloc1_final`` mirroring ``alloc1`` it is an exact no-op)."""
+    base = SimParams.from_config(config, device=device)
+    st = kernel.scan_statics(
+        base, antithetic=bool(config.antithetic),
+        jumps=config.market_crashes is not None,
+        mortality=config.longevity is not None)
+    return st._replace(
+        bill1=st.bill1 or (not st.use_real1
+                           and "inv1_annual_tax_on_gains_rate" in names),
+        bill2=st.bill2 or (not st.use_real2
+                           and "inv2_annual_tax_on_gains_rate" in names),
+        glide=st.glide or "allocation_inv1_pct" in names,
+    )
+
+
 def sensitivity_ad(
     config: Config,
     working_months: int,
@@ -475,11 +503,20 @@ def sensitivity_ad(
     seed: int = 0,
     params: Optional[Sequence[str]] = None,
     device="cuda",
+    backend: Optional[str] = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, float]:
     """d mean-final-balance / d theta by ``torch.func.jacfwd`` through the
-    plain month loop on ``device`` (float32 on the card, float64 on the
-    CPU), every parameter in one pass. Returns ``{"mean_final_balance":
-    value, "d_mean_final": {name: grad}}``.
+    month loop on ``device``, every parameter in one pass, in ``dtype``
+    (default float32 on the card, float64 on the CPU). Returns
+    ``{"mean_final_balance": value, "d_mean_final": {name: grad}}``.
+
+    ``backend`` (default ``MCRT_GRID_BACKEND``, else "auto", as
+    :func:`sensitivity_fd` reads it, so the two share their draws):
+    "auto", "pallas" and "pallas_sharded" differentiate the plain loop on
+    the grid kernel's Philox stream; "scan" is JAX's ``sensitivity_ad``:
+    ``simulate_paths`` on ``stream_keys(seed)[1]`` over ``W + 12 R``
+    months, equal to JAX's on the same seed to round-off.
 
     Forward mode: one tangent per parameter, no reverse-pass residuals
     through the month loop. Ruin clamps and capacity switches make the
@@ -501,21 +538,39 @@ def sensitivity_ad(
             f"Parameters {unset} are unset (null) in the base config; set "
             "base values to differentiate through them."
         )
+    if backend is None:
+        backend = os.environ.get("MCRT_GRID_BACKEND", "auto")
+    if backend not in ("auto", "scan", "pallas", "pallas_sharded"):
+        raise ValueError(f"unknown grid backend {backend!r}")
     require_device(device)
     device = torch.device(device)
-    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    if dtype is None:
+        dtype = torch.float32 if device.type == "cuda" else torch.float64
     w = int(working_months)
     R = int(config.retirement_years)
     n = int(num_paths)
-    statics = statics_from_config(config)
-    stream_seed = _grid_stream_seed(seed)
+
+    if backend == "scan":
+        statics = _scan_statics_ad(config, names, device)
+        final_key = stream_keys(seed)[1]
+
+        def final_balances(p):
+            return kernel.simulate_paths(
+                p, w, final_key, n_paths=n, t_scan=w + MONTHS_PER_YEAR * R,
+                retirement_years=R, traj_len=0, dtype=dtype, device=device,
+                statics=statics).final_balance
+    else:
+        statics = statics_from_config(config)
+        stream_seed = _grid_stream_seed(seed)
+
+        def final_balances(p):
+            packed = pack_params(p, stream_seed, [w], R, dtype=dtype,
+                                 device=device)
+            return kernel.simulate(packed, statics, R, n)["final_balance"]
 
     def metric(theta):
         p = _params_from_theta(config, names, theta, device=device)
-        packed = pack_params(p, stream_seed, [w], R, dtype=dtype,
-                             device=device)
-        final = kernel.simulate(packed, statics, R, n)["final_balance"]
-        mean = final.to(torch.float64).mean()
+        mean = final_balances(p).to(torch.float64).mean()
         return mean, mean
 
     theta0 = torch.tensor([float(dump[n]) for n in names],

@@ -821,7 +821,11 @@ def create_app(device: str = "cuda") -> web.Application:
     return app
 
 
-def main(argv=None) -> None:
+def main(argv=None, host: Optional[str] = None,
+         port: Optional[int] = None) -> None:
+    """Serve the API on ``host``:``port`` (as the JAX ``main``: the
+    argument, else ``MCRT_HOST`` / ``MCRT_PORT``, else ``PORT``, else
+    0.0.0.0:8080); ``argv`` takes ``--device``."""
     parser = argparse.ArgumentParser(
         prog="mcrt-torch-server",
         description="PyTorch/CUDA retirement Monte Carlo HTTP API",
@@ -829,8 +833,9 @@ def main(argv=None) -> None:
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     args = parser.parse_args(argv)
-    host = os.environ.get("MCRT_HOST", "0.0.0.0")
-    port = int(os.environ.get("MCRT_PORT", os.environ.get("PORT", "8080")))
+    host = host or os.environ.get("MCRT_HOST", "0.0.0.0")
+    if port is None:
+        port = int(os.environ.get("MCRT_PORT", os.environ.get("PORT", "8080")))
     configure_logging(logfile="server.log")
     log.info("Monte Carlo Retirement API (PyTorch, %s) starting on %s:%d",
              args.device, host, port)

@@ -27,6 +27,7 @@ interpolate` applies ``quantiles_percol``'s own arithmetic: the float32 rank
 ``h = f32(q) * f32(n_valid - 1)``, ``hi = min(lo + 1, n_valid - 1)`` and
 numpy's two-branch lerp, with no zero-band snap (the JAX package's snap
 mirrors its TPU's denormal-flushing compares; torch compares exactly).
+:func:`snap_zero_band` is that snap, for callers that want JAX's answer.
 """
 
 from __future__ import annotations
@@ -55,6 +56,16 @@ def decode_keys(keys: np.ndarray) -> np.ndarray:
     was_neg = (keys & _SIGN) == 0
     bits = np.where(was_neg, ~keys, keys ^ _SIGN)
     return np.ascontiguousarray(bits).view(np.float32)
+
+
+def snap_zero_band(out: np.ndarray) -> np.ndarray:
+    """Collapse subnormal-magnitude float32 results (and -0.0) to +0.0:
+    the JAX package's numpy snap (its device compares read every key of
+    the subnormal band as 0.0, so the band's exact answer is zero)."""
+    return np.where(
+        np.abs(out) < np.finfo(np.float32).tiny,
+        np.zeros((), np.float32), out,
+    )
 
 
 class BandSearch:

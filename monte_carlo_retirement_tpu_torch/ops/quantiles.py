@@ -12,7 +12,7 @@ kernels' layout — sorts without a copy.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -113,6 +113,58 @@ def exact_quantiles(
     q = torch.as_tensor(qs, dtype=x.dtype, device=x.device)
     qmat = q[None, :].expand(x.shape[1], -1)
     return quantiles_percol(x, qmat, valid).t()
+
+
+def snap_zero_band(out: torch.Tensor) -> torch.Tensor:
+    """Subnormal-magnitude results (and -0.0) as +0.0: the JAX package's
+    ``_snap_zero_band``. Its compares run with subnormals read as zero, so
+    a result in that band is zero there; the names below that JAX's
+    ``ops/quantiles.py`` exports give the same answer."""
+    tiny = torch.finfo(out.dtype).tiny
+    return torch.where(out.abs() < tiny, torch.zeros((), dtype=out.dtype,
+                                                     device=out.device), out)
+
+
+def order_statistics(x: torch.Tensor, ranks: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Exact order statistics along axis 0 (JAX ``order_statistics``).
+
+    x: (n, C) values, finite where valid. ranks: (C, K) 0-indexed ranks
+    within each column's valid entries (rank 0 the smallest). valid:
+    optional (n, C) mask; invalid entries sort last and are never
+    selected. Returns (C, K) in ``x``'s dtype, NaN where a rank is at or
+    beyond the column's valid count."""
+    if x.ndim != 2 or ranks.ndim != 2 or x.shape[1] != ranks.shape[0]:
+        raise ValueError(
+            f"expected x (n, C) and ranks (C, K); got {tuple(x.shape)} / "
+            f"{tuple(ranks.shape)}"
+        )
+    srt, n_valid = sorted_columns(x, valid)
+    ranks = torch.as_tensor(ranks, dtype=torch.int64, device=x.device)
+    vals = torch.gather(srt, 1, torch.clamp(ranks, 0, x.shape[0] - 1))
+    out = torch.where(ranks < n_valid[:, None], vals, torch.nan)
+    return snap_zero_band(out)
+
+
+def exact_quantiles_parts(parts: Sequence[torch.Tensor], qs: Sequence[float],
+                          valids: Optional[Sequence] = None
+                          ) -> List[torch.Tensor]:
+    """:func:`exact_quantiles` of several (n, C_i) column groups at shared
+    fractions ``qs``, with optional per-part masks (``None`` entries
+    allowed): a list of (Q, C_i) tables, zero band snapped as JAX's."""
+    if valids is None:
+        valids = [None] * len(parts)
+    return [snap_zero_band(exact_quantiles(x, qs, valid))
+            for x, valid in zip(parts, valids)]
+
+
+def masked_median(x: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Median over the valid entries of a vector (``np.percentile`` 50;
+    NaN when none is valid)."""
+    out = exact_quantiles_parts([x[:, None]], [0.5],
+                                [None if valid is None else valid[:, None]])
+    return out[0][0, 0]
 
 
 def upper_median(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,10 @@ and the annual mark-to-market settlement ``annual_tax`` (``:645-690``) —
 with IEEE division where Pallas used its approximate reciprocal. The
 average-cost-basis invariant makes one per-asset sale profile serve the
 capacity check, the withdrawal and the rebalance: realized tax is exactly
-``gross * eff``. Tested against the JAX package's ``ops/tax.py`` closed forms.
+``gross * eff``. Tested against the JAX package's ``ops/tax.py`` closed forms,
+which follow at the end of this module under their JAX names
+(``sale_tax_profile``, ``withdraw_net_target``, ``net_liquidation_value``,
+``rebalance``, ``apply_annual_gain_taxes``).
 """
 
 from __future__ import annotations
@@ -158,3 +161,159 @@ def annual_tax(b1, c1, b2, c2, g1a, g2a, a1, use1, r1, bill1, ann1, use2, r2,
     failed = payment < total_due - tol
     b1, c1, b2, c2 = monthly_rebalance(b1, c1, b2, c2, a1, use1, r1, use2, r2)
     return b1, c1, b2, c2, failed
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's public closed forms (``ops/tax.py:45-253``), same
+# signatures and return tuples. The month loop above runs the kernel body's
+# algebra; these are the scan's per-asset forms, kept operation for
+# operation: they differ from the body's where a rate of 1 meets a zero
+# basis (the closed form sells the asset for no cash, the body sells
+# nothing) and by rounding where a sale nearly empties an asset. The
+# realized-tax flags may be booleans or bool tensors that broadcast.
+# ---------------------------------------------------------------------------
+def _safe(x: Tensor) -> Tensor:
+    """A strictly positive denominator stand-in for balances near zero."""
+    return torch.where(x > EPS, x, torch.ones_like(x))
+
+
+def _flag(use, like: Tensor) -> Tensor:
+    return torch.as_tensor(use, dtype=torch.bool, device=like.device)
+
+
+def sale_tax_profile(bal: Tensor, basis: Tensor, use_realized_tax,
+                     tax_rate) -> Tuple[Tensor, Tensor]:
+    """Per-asset (tax per gross dollar sold, full-liquidation net
+    capacity): the capacity is :func:`net_liquidation_value`."""
+    use = _flag(use_realized_tax, bal)
+    gain = torch.clamp(bal - basis, min=0.0)
+    eff_tax = torch.where(use, (gain / _safe(bal)) * tax_rate, 0.0)
+    tax = torch.where(use, gain * tax_rate, 0.0)
+    capacity = torch.where(bal <= EPS, 0.0, torch.clamp(bal - tax, min=0.0))
+    return eff_tax, capacity
+
+
+def withdraw_net_target(bal: Tensor, basis: Tensor, net_target: Tensor,
+                        use_realized_tax, tax_rate, eff_tax=None
+                        ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Sell just enough of one asset to deliver ``net_target`` cash after
+    realized-gains tax, under average-cost basis (the basis removed is the
+    sold fraction of the basis; the sale is capped at the balance, so the
+    cash may fall short). ``eff_tax`` from :func:`sale_tax_profile` may be
+    passed. Returns (new_balance, new_basis, gross_withdrawal,
+    net_cash_delivered)."""
+    use = _flag(use_realized_tax, bal)
+    active = (bal > EPS) & (net_target > 0)
+    if eff_tax is None:
+        gain_frac = torch.clamp(bal - basis, min=0.0) / _safe(bal)
+        eff_tax = torch.where(use, gain_frac * tax_rate, 0.0)
+    net_frac = torch.clamp(1.0 - eff_tax, min=EPS)
+    gross = torch.minimum(net_target / net_frac, bal)
+    frac_sold = gross / _safe(bal)
+    basis_removed = basis * frac_sold
+    taxable_gain = torch.clamp(gross - basis_removed, min=0.0)
+    tax_paid = torch.where(use, taxable_gain * tax_rate, 0.0)
+    net_cash = torch.clamp(gross - tax_paid, min=0.0)
+    new_bal = torch.clamp(bal - gross, min=0.0)
+    new_basis = torch.clamp(basis - basis_removed, min=0.0)
+    emptied = new_bal <= EPS
+    new_bal = torch.where(emptied, 0.0, new_bal)
+    new_basis = torch.where(emptied, 0.0, new_basis)
+    return (
+        torch.where(active, new_bal, torch.clamp(bal, min=0.0)),
+        torch.where(active, new_basis, torch.clamp(basis, min=0.0)),
+        torch.where(active, gross, 0.0),
+        torch.where(active, net_cash, 0.0),
+    )
+
+
+def net_liquidation_value(bal: Tensor, basis: Tensor, use_realized_tax,
+                          tax_rate) -> Tensor:
+    """Cash obtained by liquidating an asset and paying its gains tax: the
+    withdrawal capacity and the ruin test."""
+    return sale_tax_profile(bal, basis, use_realized_tax, tax_rate)[1]
+
+
+def rebalance(bal1: Tensor, basis1: Tensor, bal2: Tensor, basis2: Tensor,
+              alloc1, use_real1, rate1, use_real2, rate2
+              ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Tax-aware restore of the target allocation: the over-weight side
+    sells gross x solving ``bal_s - x = alloc_s * (total - tax_per_$ * x)``,
+    so the post-tax weights are exact; the buyer's basis grows by the net
+    purchase only."""
+    total = bal1 + bal2
+    drift1 = bal1 - total * alloc1
+    noop = (total <= EPS) | (drift1.abs() <= EPS)
+    sell1 = drift1 > 0
+    alloc2 = 1.0 - alloc1
+    bal_s = torch.where(sell1, bal1, bal2)
+    basis_s = torch.where(sell1, basis1, basis2)
+    flag1 = _flag(use_real1, bal1).to(bal1.dtype)
+    flag2 = _flag(use_real2, bal1).to(bal1.dtype)
+    taxed_rate_s = torch.where(sell1, rate1 * flag1, rate2 * flag2)
+    alloc_s = torch.where(sell1, alloc1, alloc2)
+    drift_s = torch.where(sell1, drift1, bal2 - total * alloc2)
+    gain_frac = torch.clamp(bal_s - basis_s, min=0.0) / _safe(bal_s)
+    tax_per_dollar = gain_frac * taxed_rate_s
+    denom = torch.clamp(1.0 - alloc_s * tax_per_dollar, min=EPS)
+    gross_sale = torch.minimum(bal_s, drift_s / denom)
+    frac_sold = gross_sale / _safe(bal_s)
+    basis_removed = torch.minimum(basis_s, basis_s * frac_sold)
+    taxable_gain = torch.clamp(gross_sale - basis_removed, min=0.0)
+    net_purchase = gross_sale - taxable_gain * taxed_rate_s
+    new_s_bal = torch.clamp(bal_s - gross_sale, min=0.0)
+    new_s_basis = torch.clamp(basis_s - basis_removed, min=0.0)
+    bal_b = torch.where(sell1, bal2, bal1) + net_purchase
+    basis_b = torch.where(sell1, basis2, basis1) + net_purchase
+    out_b1 = torch.where(sell1, new_s_bal, bal_b)
+    out_c1 = torch.where(sell1, new_s_basis, basis_b)
+    out_b2 = torch.where(sell1, bal_b, new_s_bal)
+    out_c2 = torch.where(sell1, basis_b, new_s_basis)
+    z1, z2 = out_b1 <= EPS, out_b2 <= EPS
+    out_b1 = torch.where(z1, 0.0, out_b1)
+    out_c1 = torch.where(z1, 0.0, out_c1)
+    out_b2 = torch.where(z2, 0.0, out_b2)
+    out_c2 = torch.where(z2, 0.0, out_c2)
+    return (
+        torch.where(noop, bal1, out_b1),
+        torch.where(noop, basis1, out_c1),
+        torch.where(noop, bal2, out_b2),
+        torch.where(noop, basis2, out_c2),
+    )
+
+
+def apply_annual_gain_taxes(bal1: Tensor, basis1: Tensor, bal2: Tensor,
+                            basis2: Tensor, gain1: Tensor, gain2: Tensor,
+                            alloc1, use_real1, rate_real1, rate_ann1,
+                            use_real2, rate_real2, rate_ann2
+                            ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Settle one completed mark-to-market tax period: the bill on each
+    annual-system asset's positive market P&L ``gain*``, drawn from both
+    assets pro-rata by net capacity (a realized-tax asset may sell extra to
+    pay its share), then an unconditional :func:`rebalance`. Returns
+    (b1, c1, b2, c2, tax_failed)."""
+    u1, u2 = _flag(use_real1, bal1), _flag(use_real2, bal1)
+    due1 = torch.where(u1, 0.0, torch.clamp(gain1, min=0.0) * rate_ann1)
+    due2 = torch.where(u2, 0.0, torch.clamp(gain2, min=0.0) * rate_ann2)
+    total_due = due1 + due2
+    eff1, cap1 = sale_tax_profile(bal1, basis1, u1, rate_real1)
+    eff2, cap2 = sale_tax_profile(bal2, basis2, u2, rate_real2)
+    total_cap = cap1 + cap2
+    payment = torch.minimum(total_due, total_cap)
+    tol = EPS + fail_rtol(bal1.dtype) * (total_due + total_cap)
+    tax_failed = payment < total_due - tol
+    do_pay = (total_cap > EPS) & (payment > 0)
+    share1 = cap1 / _safe(total_cap)
+    share2 = 1.0 - share1
+    nb1, nc1, _, net1 = withdraw_net_target(bal1, basis1, payment * share1,
+                                            u1, rate_real1, eff_tax=eff1)
+    nb2, nc2, _, net2 = withdraw_net_target(bal2, basis2, payment * share2,
+                                            u2, rate_real2, eff_tax=eff2)
+    bal1 = torch.where(do_pay, nb1, bal1)
+    basis1 = torch.where(do_pay, nc1, basis1)
+    bal2 = torch.where(do_pay, nb2, bal2)
+    basis2 = torch.where(do_pay, nc2, basis2)
+    tax_failed = tax_failed | (do_pay & (net1 + net2 < total_due - tol))
+    bal1, basis1, bal2, basis2 = rebalance(bal1, basis1, bal2, basis2, alloc1,
+                                           u1, rate_real1, u2, rate_real2)
+    return bal1, basis1, bal2, basis2, tax_failed

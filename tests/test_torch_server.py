@@ -294,6 +294,38 @@ def test_server_defaults_to_the_card(monkeypatch):
     assert app[server.DEVICE] == "cpu" and kw["port"] == 8123
 
 
+BIND_CASES = {
+    "arguments": (dict(host="127.0.0.1", port=9001),
+                  {"MCRT_HOST": "10.0.0.1", "MCRT_PORT": "9002"}),
+    "MCRT_HOST/MCRT_PORT": ({}, {"MCRT_HOST": "10.0.0.1", "MCRT_PORT": "9002"}),
+    "PORT": ({}, {"PORT": "9003"}),
+    "MCRT_PORT over PORT": ({}, {"MCRT_PORT": "9004", "PORT": "9003"}),
+    "defaults": ({}, {}),
+    "port 0": (dict(port=0), {"MCRT_PORT": "9002"}),
+}
+
+
+@pytest.mark.parametrize("case", list(BIND_CASES))
+def test_main_binds_where_the_jax_main_binds(monkeypatch, case):
+    """``main(argv, host=, port=)`` takes the bind address as JAX's
+    ``main(host, port)`` does: the argument, else MCRT_HOST / MCRT_PORT,
+    else PORT, else 0.0.0.0:8080."""
+    kwargs, env = BIND_CASES[case]
+    for name in ("MCRT_HOST", "MCRT_PORT", "PORT"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    binds = []
+    for mod in (server, jax_server):
+        monkeypatch.setattr(mod.web, "run_app",
+                            lambda app, **kw: binds.append(kw))
+        monkeypatch.setattr(mod, "configure_logging", lambda **kw: None)
+    server.main(["--device", "cpu"], **kwargs)
+    jax_server.main(**kwargs)
+    got, want = binds
+    assert got == want and set(got) == {"host", "port"}, (case, got, want)
+
+
 def test_concurrent_requests_equal_serial_ones():
     """Four requests with different seeds sent together answer what each
     answers alone (per-request engines, no shared state but the counters)."""
