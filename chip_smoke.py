@@ -8,14 +8,20 @@ result):
   1. the card (nvidia-smi name and power limit), and the kernels built with
      nvcc from engine/csrc into build/torch_kernels/: one month-loop library
      per Statics the run uses (config.json's, each extension alone, all
-     extensions together), the stream check and the op-count cubins of
-     config.json's and the all-on Statics, one nvcc each, all started
-     together; each library's registers and spills per kernel (ptxas), the
-     dynamic shared memory of phase 6's tiled launches, and the SASS pipe
-     loads of a draw and a month step (engine/bound.py) behind every bound;
+     extensions together), one scan library per scan structure and dtype
+     (float32, float64: config.json's, the all-on config's, jorge.json's and
+     phase 15's batch groups), the stream check and the op-count cubins of
+     config.json's and the all-on Statics and of config.json's scan in both
+     dtypes, one nvcc each, all started together; each library's registers
+     and spills per kernel (ptxas), the dynamic shared memory of phase 6's
+     tiled launches, and the SASS pipe loads of a draw and a month step
+     (engine/bound.py) behind every bound;
   2. the device draws vs ops/shocks.py in torch on the card: the month,
      crash and longevity Philox words equal, the crash and longevity
-     uniforms equal, the normals within 2e-6 relative;
+     uniforms equal, the normals within 2e-6 relative; then the scan
+     kernels' threefry (csrc/threefry.cuh) vs ops/threefry.py on the card
+     for 1M random keys and flat indices up to 3 * 2**33: words and
+     float32/float64 uniforms bit-equal, the normals' largest ulp gap;
   3. probe_kernel vs probe_plain on the card (config.json, 16 candidates
      over 0-480 months, 65,536 paths, one seed so one stream): per-candidate
      success within 0.3 points, per-path flags mismatching below 3e-3, and
@@ -150,44 +156,53 @@ result):
      README's library snippet on the card. Launches of (a), (d) and (e)
      are counted; the campaign's and the checks' are comparisons.
  14. the scan engine on the card (engine/kernel.simulate_paths: the JAX
-     scan's threefry stream, ops/threefry.py, and the plain loop's month
-     body; plain torch, no kernel): (a) threefry words and float32/float64
-     uniforms of (1,000,003, 3) draws bit-equal card vs CPU, for main seeds
-     0, 7, 2026 and 2**40 + 3 at months 1, 600, JUMP_FOLD_OFFSET + 5 and
-     MORT_FOLD_OFFSET; the normals' largest difference card vs CPU; (b)
-     simulate_paths in float64 on the card vs the same call on the CPU
-     (4,113 paths, R = 10, config.json and the all-on config with
-     antithetic pairing): success flags equal, final balances within
-     relative 1e-12 (paths beyond $1e9 skipped and counted); (c) the main
+     scan's threefry stream, ops/threefry.py, run by the scan kernels,
+     scan_rows_kernel and scan_full_kernel of month_loop.cu): (a) threefry
+     words and float32/float64 uniforms of (1,000,003, 3) draws bit-equal
+     card vs CPU, for main seeds 0, 7, 2026 and 2**40 + 3 at months 1, 600,
+     JUMP_FOLD_OFFSET + 5 and MORT_FOLD_OFFSET; the normals' largest
+     difference card vs CPU; (b) both scan kernels vs their plain chain of
+     torch ops on the card (config.json from global row 0; the all-on
+     config, antithetic, from the odd global row 4,097; R = 10; rows at W
+     138-174, the tracked run at W = 150): float64 at 4,113 paths, flags
+     equal and final balances and every tracked field within relative
+     1e-12 (paths beyond $1e9 skipped and counted), float32 at 2**20 paths
+     by gate (b) (hosts/fuzz.compare_rows / compare_full); (c) the main
      path through Engine(dtype=float64, device="cuda"), which picks the
      scan: at config.json's own sizes equal to the JAX engine's CPU answer,
-     then at 1M search + 1M final paths (month, success, both walls; no
-     kernel launched), and one float32 scan probe at phase 6's probe shape;
-     (d) hosts/cross_backend_check.py: its three cases within max(3 sigma,
-     0.5) points; (e) hosts/scaling_demo.py's lines.
- 15. the scan routes of the analyses (JAX's own routes, plain torch, no
-     kernel launched): (a) run_scenario_batch(backend="scan") over six rows
-     that share retirement_years and one pension stream (config.json; inv1
-     on the annual mark-to-market system at 0.25; the pension
-     fixed-nominal; the pension capped; + crashes; + longevity), at W
-     spread around the working month: float64 at 4,113 paths, R = 10, on
-     the card against the same call on the CPU (every row's success equal,
-     every statistic within 1e-12 relative), then float32 at 1,048,576
-     paths, R = 50: each row within max(3 sigma, 0.5) points of the same
-     row on the grid-kernel route (one launch per Statics), both walls;
-     (b) sensitivity_ad(backend="scan") of the 8 default parameters: float64
-     at 4,113 paths on the card against the CPU (the value and every
-     gradient within 1e-10 relative), then float32 at 1,048,576 paths,
-     config.json, W=231: every gradient finite, d/d expenses < 0 < d/d
-     equity mean, both within 5% of the central difference of
-     sensitivity_fd(backend="scan") at the same paths, its wall beside
-     phase 8f's.
+     then at 1M search + 1M final paths (month, success, both walls), scan
+     kernel launched and no plain chain; the scan kernels' times at phase
+     6's shapes (16 x 1M x 600 and 1M x 600), float32 and float64, beside
+     their bounds and one call of the plain chain; (d)
+     hosts/cross_backend_check.py: its three cases within max(3 sigma, 0.5)
+     points, one scan launch each; (e) hosts/scaling_demo.py's lines.
+ 15. the scan routes of the analyses (JAX's own routes): (a)
+     run_scenario_batch(backend="scan") over six rows that share
+     retirement_years and one pension stream (config.json; inv1 on the
+     annual mark-to-market system at 0.25; the pension fixed-nominal; the
+     pension capped; + crashes; + longevity), at W spread around the
+     working month: float64 at 4,113 paths, R = 10, the card's scan kernel
+     against the CPU's plain chain (every row's survivors equal, every
+     statistic within 1e-12 relative), then float32 at 1,048,576 paths,
+     R = 50: each row within max(3 sigma, 0.5) points of the same row on
+     the grid-kernel route (one launch per Statics), both walls, one scan
+     launch per group and no plain chain; (b)
+     sensitivity_ad(backend="scan") of the 8 default parameters, which
+     runs the plain chain by name (a kernel carries no tangent; counted as
+     ad): float64 at 4,113 paths on the card against the CPU (the value
+     and every gradient within 1e-10 relative), then float32 at 1,048,576
+     paths, config.json, W=231: every gradient finite, d/d expenses < 0 <
+     d/d equity mean, both within 5% of the central difference of
+     sensitivity_fd(backend="scan") (the scan kernel) at the same paths,
+     its wall beside phase 8f's.
 
 The kernels' line comes before the last two: {"kernels": [...]}, one row
 per kernel with its launches on the main path (phase 5), the grid path
 (phase 8), the server's routes (phase 10a-d), the chunked runs (phase
 11), the paths mesh (phase 12) and the tools (phase 13a, d, e), its
-time, bound and plain version's time; then the card's
+time, bound and plain version's time, and the scan kernels' row with
+their launches on the float64 main path (14c) and the scan's other
+routes (14d, 14e, 15a, 15b); then the card's
 name and power limit on their own line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -295,6 +310,17 @@ BIG_14B = 1e9  # the conditioning bound of ROADMAP C
 # (tests/test_torch_scan_search.py holds the port's CPU scan to it).
 JAX_CPU_ANSWER = (234, 97.667, 98.1)
 MONTHS_14C = 6  # the scan's month at 1M paths vs the kernels' (phase 5b)
+# Phase 14b: the scan kernels against their plain chain on the card.
+ROWS_14B = (138, 150, 162, 174)  # scan_rows' rows; scan_full runs W_14B
+OFFSET_14B = 4097  # the all-on runs' shard: an odd first global row
+N_14B_F32 = 2**20
+# 14c's float64 check of scan_rows_kernel at the main path's block (16 rows
+# per block, the double tile): fewer paths than the main path's 1M keep the
+# plain chain's one float64 call short; the block is the same.
+N_14C_F64 = 2**18
+SCAN_REPLACES = "monte_carlo_retirement_tpu/engine/kernel.py:124"
+# Phase 2: the scan kernels' threefry draws vs ops/threefry on the card.
+ULPS_2 = 64  # normals: log1p and sqrt on either side (measured in the log)
 # Phase 15: the scan routes of run_scenario_batch and sensitivity_ad. Six
 # rows with config.json's one pension stream (the rent pruned); "pension"
 # updates that stream.
@@ -359,6 +385,42 @@ def _run_statics():
     return list(dict.fromkeys(statics_from_config(c) for c in configs))
 
 
+def _scan_flags(cfg) -> dict:
+    return dict(antithetic=bool(cfg.antithetic),
+                jumps=cfg.market_crashes is not None,
+                mortality=cfg.longevity is not None)
+
+
+def _scan_statics(cfg):
+    """The structure the scan runs a config under (engine/kernel.py
+    scan_statics of its parameters)."""
+    from monte_carlo_retirement_tpu_torch.engine.kernel import scan_statics
+    from monte_carlo_retirement_tpu_torch.models.retirement import SimParams
+
+    return scan_statics(SimParams.from_config(cfg), **_scan_flags(cfg))
+
+
+def _scan_units():
+    """Every scan library this run launches: the scan structure of
+    config.json, the all-on config, jorge.json (hosts/cross_backend_check)
+    and each group of phase 15's batch, in float32 and float64."""
+    from monte_carlo_retirement_tpu_torch.config import (
+        Config,
+        load_config_from_json,
+    )
+    from monte_carlo_retirement_tpu_torch.engine import _build
+    from monte_carlo_retirement_tpu_torch.engine.scenario_batch import (
+        scan_batch_statics,
+    )
+
+    jorge = Config(**load_config_from_json(os.path.join(REPO, "jorge.json")))
+    statics = [_scan_statics(c) for c in (_config(), _config(**dict(ALL_ON)),
+                                          jorge)]
+    statics += scan_batch_statics([_row_15(over) for _, over in ROWS_15])
+    return [_build.Unit(st, real, "threefry")
+            for st in dict.fromkeys(statics) for real in ("float", "double")]
+
+
 def _grid_raw():
     with open(os.path.join(REPO, "config.json"), encoding="utf-8") as fh:
         raw = json.load(fh)
@@ -415,9 +477,13 @@ def _ptxas_summary(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = next((k for k in ("probe_kernel", "grid_kernel", "full_kernel",
-                                     "normals_kernel") if k in m.group(1)),
+            name = next((k for k in ("probe_kernel", "grid_kernel",
+                                     "scan_full_kernel", "full_kernel",
+                                     "normals_kernel", "threefry_kernel",
+                                     "scan_rows_kernel") if k in m.group(1)),
                         m.group(1))
+            if name == "scan_rows_kernel":  # one instance per parameter form
+                name += "<shared>" if "ILb1E" in m.group(1) else "<per-row>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -429,6 +495,7 @@ def _ptxas_summary(log: str) -> dict:
 
 
 def _statics_label(st) -> str:
+    st = getattr(st, "statics", st)  # a scan library's Unit
     on = [f for f in ("antithetic", "glide", "guardrails", "jumps", "mortality")
           if getattr(st, f)]
     on += ["bill1"] * st.bill1 + ["bill2"] * st.bill2
@@ -462,9 +529,12 @@ def phase_build(report):
     report["card"] = _card_line()
     print(f"[1] card: {report['card']} | torch: {torch.cuda.get_device_name(0)}"
           f" | torch {torch.__version__} cuda {torch.version.cuda}")
-    statics = _run_statics()
+    statics = _run_statics() + _scan_units()
+    scan_slice = _scan_statics(_config())
     counted = {"slice": ck.statics_from_config(_config()),
-               "all-on": ck.statics_from_config(_config(**dict(ALL_ON)))}
+               "all-on": ck.statics_from_config(_config(**dict(ALL_ON))),
+               "scan f32": _build.Unit(scan_slice, "float", "threefry"),
+               "scan f64": _build.Unit(scan_slice, "double", "threefry")}
     t0 = time.perf_counter()
     paths, built = _build.build_many(statics + [None], list(counted.values()))
     for st in statics:
@@ -477,6 +547,8 @@ def phase_build(report):
     report["ptxas"] = {}
     for st, so in zip(statics + [None], paths):
         label = "stream check" if st is None else _statics_label(st)
+        if isinstance(st, _build.Unit):
+            label += f" | scan, {st.real}"
         summary = _ptxas_summary(_build.build_log(st))
         report["ptxas"][label] = summary
         print(f"[1] {os.path.basename(so)}: {label}: " + ", ".join(
@@ -495,9 +567,19 @@ def phase_build(report):
     for label, st in counted.items():
         sass = _build.count_sass(st)
         pipes = bound.sass_pipes(sass)
-        report["parts"][label] = parts = bound.part_loads(sass)
+        scan = isinstance(st, _build.Unit)
+        normals = 3 + int(scan_slice.jumps) if scan else 0
+        real = st.real if scan else "float"
+        report["parts"][label] = parts = bound.part_loads(sass, normals, real)
         print(f"[1] SASS of one step ({label}; main body, by pipe): " + "; ".join(
             f"{name[6:]} {pipes[name]}" for name in bound.PARTS))
+        if scan:
+            shares = bound.band_shares(real)
+            print(f"[1]   {label}: the draw runs erfinv band 0 for each of its "
+                  f"{normals} normals; one normal through each band (SASS, by "
+                  f"pipe), at its share of the normals: " + "; ".join(
+                      f"band {b} {pipes[name]} x {share:.6g}" for b, (name, share)
+                      in enumerate(zip(bound.BANDS, shares))))
         print(f"[1]   SM-cycles per thread (busiest pipe or issue; yearly code "
               f"/12): " + ", ".join(f"{k} {max(v.values()):.4f}"
                                      for k, v in parts.items()))
@@ -551,6 +633,45 @@ def phase_normals(report):
     if not rel <= NORMAL_RTOL:
         raise AssertionError(f"normals differ by {rel:.3e} relative")
     report["normals_max_rel"] = rel
+
+    # The scan kernels' draws (csrc/threefry.cuh) vs ops/threefry on the card:
+    # random keys and flat indices below 3 * 2**33 (the counter's high word
+    # in use), plus the edges of the 32-bit counter.
+    import numpy as np
+    from monte_carlo_retirement_tpu_torch.engine.cuda_kernel import (
+        device_threefry,
+    )
+    from monte_carlo_retirement_tpu_torch.ops import threefry
+
+    k0 = torch.randint(0, 2**32, (n,), generator=g, device=dev)
+    k1 = torch.randint(0, 2**32, (n,), generator=g, device=dev)
+    idx = torch.randint(0, 3 * 2**33, (n,), generator=g, device=dev)
+    idx[:4] = torch.tensor([0, 2**32 - 1, 2**32, 3 * (2**31 + 11)], device=dev)
+    hi, lo = idx >> 32, idx & 0xFFFFFFFF
+    words_d, f32_d, f64_d = device_threefry(k0, k1, hi, lo)
+    y0, y1 = threefry.threefry2x32((k0, k1), hi, lo)
+    torch.cuda.synchronize()
+    if not torch.equal(words_d, torch.stack([y0, y1])):
+        raise AssertionError("[2] device threefry words differ from ops/threefry")
+    ulps = {}
+    for dt, vals in ((torch.float32, f32_d), (torch.float64, f64_d)):
+        u = threefry.uniform_from_words(y0, y1, dt)
+        if not torch.equal(vals[0], u):
+            raise AssertionError(f"[2] device threefry uniforms differ ({dt})")
+        z = threefry.normal_from_words(y0, y1, dt).cpu().numpy()
+        zd = vals[1].cpu().numpy()
+        if not np.isfinite(zd).all():
+            raise AssertionError(f"[2] device threefry normals not finite ({dt})")
+        ulps[str(dt)] = (float(np.max(np.abs(zd - z) / np.spacing(np.abs(z)))),
+                         float(np.mean(zd == z)))
+    print(f"[2] threefry (the scan kernels' draws): words (y0, y1) equal on "
+          f"{2 * n:,} words (random keys, flat indices up to 3 * 2**33); "
+          f"float32 and float64 uniforms bit-equal; normals vs ops/threefry on "
+          f"the card (largest ulp gap, bit-equal share): " + ", ".join(
+              f"{k} {v[0]:.0f} / {v[1]:.6f}" for k, v in ulps.items()))
+    if not all(v[0] <= ULPS_2 for v in ulps.values()):
+        raise AssertionError(f"[2] threefry normals beyond {ULPS_2} ulps: {ulps}")
+    report["threefry_normal_ulps"] = ulps
 
 
 def _gate(stats) -> str:
@@ -2244,12 +2365,10 @@ def phase_tools(report):
 
 
 def phase_scan(report):
-    """14: the scan engine on the card (plain torch: no kernel launches)."""
+    """14: the scan engine on the card: JAX's threefry scan as its kernels."""
     import numpy as np
     import torch
     from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
-    from monte_carlo_retirement_tpu_torch.engine.kernel import simulate_paths
-    from monte_carlo_retirement_tpu_torch.engine.runner import Engine
     from monte_carlo_retirement_tpu_torch.engine.simulator import (
         RetirementMonteCarloSimulator,
     )
@@ -2297,48 +2416,82 @@ def phase_scan(report):
               f"{k} {v[0]:.3e} / {v[1]:.0f}" for k, v in normal_err.items())
           + f"; {time.perf_counter() - t0:.1f} s")
 
-    # 14b: simulate_paths on the card == on the CPU, float64.
-    t_scan = ((W_14B + 12 * R_14B + 59) // 60) * 60
-    for label, over in (("config.json", {}), ("all-on", ALL_ON)):
-        cfg = _config(retirement_years=R_14B, **dict(over))
-        flags = dict(antithetic=bool(cfg.antithetic),
-                     jumps=cfg.market_crashes is not None,
-                     mortality=cfg.longevity is not None)
-        outs = [simulate_paths(
-            SimParams.from_config(cfg, device=dev), W_14B,
-            shocks.stream_keys(SEED)[1], n_paths=N_14B, t_scan=t_scan,
-            retirement_years=R_14B, traj_len=1 + t_scan // 12,
-            dtype=torch.float64, **flags) for dev in ("cuda", "cpu")]
-        card, cpu = [{k: v.cpu().numpy() for k, v in o._asdict().items()}
-                     for o in outs]
-        ok = cpu["final_balance"] < BIG_14B
-        same_flags = np.array_equal(card["success"], cpu["success"])
-        rel = np.abs(card["final_balance"] - cpu["final_balance"])[ok] / np.maximum(
-            np.abs(cpu["final_balance"][ok]), 1.0)
-        worst = {}
-        for name in ("start_balance", "years_to_ruin", "first_year_gross",
-                     "first_year_real_gross", "trajectory", "withdrawal_rates"):
-            a, b = card[name], cpu[name]
-            fin = ~np.isnan(b)
-            if not np.array_equal(np.isnan(a), np.isnan(b)):
-                raise AssertionError(f"[14b] {label}: NaN pattern of {name}")
-            worst[name] = float(np.max(np.abs(a[fin] - b[fin]) / np.maximum(
-                np.abs(b[fin]), 1.0), initial=0.0))
-        scan[f"parity_{label}"] = {"flags_equal": same_flags,
-                                   "final_rel": float(rel.max()),
-                                   "skipped": int((~ok).sum()),
-                                   "success_pct": float(cpu["success"].mean() * 100)}
-        print(f"[14b] simulate_paths float64, {label}{' (antithetic)' if flags['antithetic'] else ''}, "
-              f"{N_14B:,} paths, W={W_14B}, R={R_14B}: card vs CPU success "
-              f"flags equal {same_flags} ({cpu['success'].mean() * 100:.2f}% "
-              f"success), final balances max rel {rel.max():.2e} (bound "
-              f"{PARITY_14B:.0e}; paths beyond $1e9 skipped: {(~ok).sum()}); "
-              f"other fields max rel {max(worst.values()):.2e}")
-        if not (same_flags and rel.max() <= PARITY_14B
-                and max(worst.values()) <= 1e-9):
-            raise AssertionError(f"[14b] {label}: the card's scan differs: {worst}")
+    # 14b: the scan kernels vs their plain chain on the card.
+    from monte_carlo_retirement_tpu_torch.engine import kernel
+    from monte_carlo_retirement_tpu_torch.hosts import fuzz
 
-    # 14c: the main path through the scan: a float64 engine on the card.
+    t_scan = ((max(ROWS_14B) + 12 * R_14B + 59) // 60) * 60
+    L = 1 + t_scan // 12
+    key = shocks.stream_keys(SEED)[1]
+    scan_err = 0.0
+    tracked = ("start_balance", "years_to_ruin", "first_year_gross",
+               "first_year_real_gross", "inflation_at_retirement",
+               "trajectory", "price_levels", "withdrawal_rates")
+    for label, over, offset in (("config.json", {}, 0),
+                                ("all-on", ALL_ON, OFFSET_14B)):
+        cfg = _config(retirement_years=R_14B, **dict(over))
+        params = SimParams.from_config(cfg, device="cuda")
+        for dtype, n in ((torch.float64, N_14B), (torch.float32, N_14B_F32)):
+            rows, st = kernel.scan_block(params, ROWS_14B, R_14B, dtype,
+                                         **_scan_flags(cfg))
+            one, _ = kernel.scan_block(params, [W_14B], R_14B, dtype, statics=st)
+            args = (R_14B, n)
+            kw = dict(t_scan=t_scan, row_offset=offset)
+            k, p = (f(rows, st, *args, key, **kw)
+                    for f in (ck.scan_rows, ck.scan_rows_plain))
+            kf, pf = (f(one, st, *args, L, key, **kw)
+                      for f in (ck.scan_full, ck.scan_full_plain))
+            torch.cuda.synchronize()
+            every = torch.ones(n, dtype=torch.bool, device="cuda")
+            d_pts = float(((k.counts - p.counts).abs().max()).item()) / n * 100
+            scan_err = max(scan_err, d_pts)
+            what = (f"[14b] {label}{' (antithetic)' if st.antithetic else ''}, "
+                    f"{str(dtype)[6:]}, {n:,} paths from global row {offset}, "
+                    f"R={R_14B}")
+            if dtype == torch.float64:
+                same = (torch.equal(k.success, p.success)
+                        and torch.equal(kf["success"], pf["success"]))
+                a = torch.cat([k.final_balance.reshape(-1), kf["final_balance"]])
+                b = torch.cat([p.final_balance.reshape(-1), pf["final_balance"]])
+                ok = b < BIG_14B
+                rel = float(((a - b).abs() / b.abs().clamp_min(1.0))[ok].max())
+                worst = 0.0
+                for name in tracked:
+                    x, y = kf[name], pf[name]
+                    if not torch.equal(x.isnan(), y.isnan()):
+                        raise AssertionError(f"{what}: NaN pattern of {name}")
+                    rows_ok = (pf["final_balance"] < BIG_14B).reshape(
+                        (-1,) + (1,) * (y.ndim - 1))
+                    sel = rows_ok.expand_as(y) & ~y.isnan()
+                    worst = max(worst, float(((x - y).abs() / y.abs().clamp_min(
+                        1.0))[sel].max()) if bool(sel.any()) else 0.0)
+                bits = float((a == b).double().mean())
+                scan[f"parity_{label}_f64"] = {
+                    "flags_equal": same, "final_rel": rel, "tracked_rel": worst,
+                    "bit_equal_finals": bits, "skipped": int((~ok).sum())}
+                print(f"{what}: scan_rows_kernel (W {list(ROWS_14B)}) and "
+                      f"scan_full_kernel (W={W_14B}, L={L}) vs their plain chain: "
+                      f"success flags equal {same}, final balances max rel "
+                      f"{rel:.2e} (bit-equal share {bits:.6f}; beyond $1e9 "
+                      f"skipped: {int((~ok).sum())}), tracked fields max rel "
+                      f"{worst:.2e} (bound {PARITY_14B:.0e}); success % "
+                      f"{(p.counts.double() / n * 100).round(decimals=3).tolist()}")
+                if not (same and rel <= PARITY_14B and worst <= PARITY_14B):
+                    raise AssertionError(f"{what}: the scan kernels differ")
+            else:
+                rows_gate = fuzz.compare_rows(k, p, every)
+                full_gate = fuzz.compare_full(kf, pf, every, st.guardrails,
+                                              dust=False)
+                scan[f"gate_{label}_f32"] = {"rows": rows_gate, "full": full_gate}
+                print(f"{what}: scan_rows_kernel vs plain chain, gate (b): "
+                      f"{_gate(rows_gate)}")
+                print(f"{what}: scan_full_kernel vs plain chain, gate (b) "
+                      f"without the $5 allowance: {_gate(full_gate)}")
+                if not (rows_gate["ok"] and full_gate["ok"]):
+                    raise AssertionError(f"{what}: the scan kernels fail gate (b)")
+    report["scan_err"] = scan_err
+
+    # 14c: the main path through the scan kernel: a float64 engine on the card.
     def float64_main_path(n_search, n_final):
         over = {} if n_search is None else dict(
             num_simulations_search=n_search, num_simulations_main=n_final)
@@ -2355,49 +2508,55 @@ def phase_scan(report):
             months, cfg.num_simulations_main)
         t_final = time.perf_counter() - t1
         ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
-        if backend != "scan" or any(ran.values()) or any(plain.values()):
-            raise AssertionError(f"[14c] not the scan: {backend} {ran} {plain}")
+        if (backend != "scan" or ran["scan"] < 1 or any(plain.values())
+                or any(v for k, v in ran.items() if k != "scan")):
+            raise AssertionError(f"[14c] not the scan kernel: {backend} {ran} "
+                                 f"{plain}")
         success = sim._success_probability(summary_df)
         if not (np.isfinite(traj_df.to_numpy()).all()
                 and np.isfinite(summary_df["Final Balance"]).all()):
             raise AssertionError("[14c] non-finite results")
-        return cfg, months, prob, len(curve), success, t_search, t_final
+        return (cfg, months, prob, len(curve), success, t_search, t_final,
+                ran["scan"])
 
-    cfg, months, prob, cands, success, t_s, t_f = float64_main_path(None, None)
+    cfg, months, prob, cands, success, t_s, t_f, ran_a = float64_main_path(
+        None, None)
     got = (months, round(prob, 3), round(success, 1))
     print(f"[14c] Engine(dtype=float64, device='cuda') picks the scan; "
           f"config.json at its own sizes ({cfg.num_simulations_search} search, "
           f"{cfg.num_simulations_main} final paths): {months} months at "
           f"{prob:.3f}% ({cands} candidates), final success {success:.1f}% "
           f"(the JAX engine on the CPU, x64: {JAX_CPU_ANSWER}); search "
-          f"{t_s:.2f} s, final {t_f:.2f} s; no kernel launched")
+          f"{t_s:.2f} s, final {t_f:.2f} s; scan kernel launches {ran_a}, "
+          f"plain calls 0")
     if got != JAX_CPU_ANSWER:
         raise AssertionError(f"[14c] {got} != the JAX answer {JAX_CPU_ANSWER}")
-    cfg, months, prob, cands, success, t_s, t_f = float64_main_path(N_FULL, N_FULL)
+    cfg, months, prob, cands, success, t_s, t_f, ran_b = float64_main_path(
+        N_FULL, N_FULL)
     margin = 150.0 / math.sqrt(N_FULL)
     kernel_months = report["5b"]["months"]
     scan.update(months=months, search_pct=prob, success_pct=success,
                 search_s=t_s, final_s=t_f, paths=N_FULL)
-    print(f"[14c] the main path through the scan, float64 on the card, "
+    report["scan_launches"] = {"main": ran_a + ran_b}
+    print(f"[14c] the main path through the scan kernel, float64 on the card, "
           f"{N_FULL:,} search + {N_FULL:,} final paths: {months} months at "
           f"{prob:.3f}% ({cands} candidates), final success {success:.3f}%; "
-          f"search wall {t_s:.2f} s, final-run wall {t_f:.2f} s (the kernels' "
-          f"float32 search, phase 5b: {kernel_months} months)")
+          f"search wall {t_s:.2f} s, final-run wall {t_f:.2f} s; scan kernel "
+          f"launches {ran_b}, plain calls 0 (the kernels' float32 search, "
+          f"phase 5b: {kernel_months} months)")
     if not (success >= cfg.target_probability - margin
             and abs(months - kernel_months) <= MONTHS_14C):
         raise AssertionError("[14c] the scan's answer is off")
-    eng = Engine(_config(retirement_years=50, initial_balance=1.5e6,
-                         monthly_expenses=4_000.0), dtype=torch.float32,
-                 device="cuda")
-    scan["probe_f32_ms"] = _time_ms(lambda: eng.probe(list(range(16)), N_FULL,
-                                                     backend="scan"), repeats=1)
-    print(f"[14c] one scan probe at phase 6's shape (16 x {N_FULL:,} x 600, "
-          f"float32): {scan['probe_f32_ms']:.1f} ms (CUDA events; the probe "
-          f"kernel: {report['times']['probe']:.3f} ms)")
+    phase_scan_times(report)
 
     # 14d: hosts/cross_backend_check.py on the card.
     t0 = time.perf_counter()
+    ck.reset_counts()
     rows = cross_backend_check.check(device="cuda")
+    report["scan_launches"]["cross_backend"] = ck.LAUNCHES["scan"]
+    if ck.LAUNCHES["scan"] != len(rows) or ck.PLAIN_CALLS["scan"]:
+        raise AssertionError(f"[14d] the scan did not run its kernel: "
+                             f"{ck.LAUNCHES} {ck.PLAIN_CALLS}")
     scan["cross_backend"] = [r._asdict() for r in rows]
     for r in rows:
         print(f"[14d] {r.name:24s} scan {r.scan_pct:8.3f}%  kernel "
@@ -2410,7 +2569,12 @@ def phase_scan(report):
 
     # 14e: hosts/scaling_demo.py on the card.
     t0 = time.perf_counter()
+    ck.reset_counts()
     lines = scaling_demo.demo(device="cuda")
+    report["scan_launches"]["scaling"] = ck.LAUNCHES["scan"]
+    if not ck.LAUNCHES["scan"] or ck.PLAIN_CALLS["scan"]:
+        raise AssertionError(f"[14e] the scan did not run its kernel: "
+                             f"{ck.LAUNCHES} {ck.PLAIN_CALLS}")
     print("[14e] shards are cuda:0 repeated: they run in turn on one card, so "
           "the speed-up is not scaling across cards")
     for ln in lines:
@@ -2421,6 +2585,115 @@ def phase_scan(report):
         if len({ln.success_pct for ln in lines if ln.engine == engine}) != 1:
             raise AssertionError(f"[14e] the {engine}'s success moved with shards")
     print(f"[14e] {time.perf_counter() - t0:.1f} s")
+
+
+def phase_scan_times(report):
+    """14c's times: the scan kernels at the probe kernel's shape (16 x 1M x
+    600, phase 6's workload) and the full kernel's (1M x 600), float32 and
+    float64, CUDA events, beside their bounds and one call of the plain
+    chain in float32, whose outputs the kernels' are held to by gate (b);
+    then the float64 scan_rows_kernel at 16 rows against one plain-chain
+    call (flags equal, finals within PARITY_14B)."""
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import bound
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine import kernel
+    from monte_carlo_retirement_tpu_torch.engine.runner import Engine
+    from monte_carlo_retirement_tpu_torch.hosts import fuzz
+
+    cfg = _config(retirement_years=50, initial_balance=1_500_000.0,
+                  monthly_expenses=4_000.0)
+    eng = Engine(cfg, device="cuda")
+    n, R = N_FULL, eng.retirement_years
+    months16 = list(range(16))
+    T = 12 * R
+    t_probe, t_full = eng._t_scan(max(months16)), eng._t_scan(0)
+    L = 1 + t_full // 12
+    search, final = eng._key("search"), eng._key("final")
+    times, bounds, blocks = {}, {}, {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        rows, st = kernel.scan_block(eng.params, months16, R, dtype,
+                                     **_scan_flags(cfg))
+        one, _ = kernel.scan_block(eng.params, [0], R, dtype, statics=st)
+        blocks[tag] = rows, st
+        elem = rows.fp.element_size()
+        reps = 5 if dtype == torch.float32 else 3
+        times[f"probe_{tag}"] = _time_ms(lambda: ck.scan_rows(
+            rows, st, R, n, search, t_scan=t_probe), repeats=reps)
+        times[f"full_{tag}"] = _time_ms(lambda: ck.scan_full(
+            one, st, R, n, L, final, t_scan=t_full), repeats=reps)
+        plan = ck.tile_plan(16, n, st, "probe", elem)
+        bounds[f"probe_{tag}"] = _bound(report, "probe", ck.tile_work(
+            plan, months16, [w + T for w in months16], t_probe - T),
+            2 * 16 * n * elem, f"scan {tag}")
+        bounds[f"full_{tag}"] = _bound(report, "full", bound.full_work(
+            n, 0, T, t_full - T), elem * n * (7 + 2 * L + R), f"scan {tag}")
+        if dtype == torch.float32:
+            # One call each: the chain is a host-bound stream of torch ops.
+            plain = {}
+            times["probe_plain"] = _time_ms(lambda: plain.update(
+                rows=ck.scan_rows_plain(rows, st, R, n, search, t_scan=t_probe)),
+                repeats=1, warm=False)
+            times["full_plain"] = _time_ms(lambda: plain.update(
+                full=ck.scan_full_plain(one, st, R, n, L, final, t_scan=t_full)),
+                repeats=1, warm=False)
+            out = ck.scan_rows(rows, st, R, n, search, t_scan=t_probe)
+            out_full = ck.scan_full(one, st, R, n, L, final, t_scan=t_full)
+            every = torch.ones(n, dtype=torch.bool, device="cuda")
+            rows_gate = fuzz.compare_rows(out, plain["rows"], every)
+            full_gate = fuzz.compare_full(out_full, plain["full"], every,
+                                          st.guardrails, dust=False)
+            report["scan"]["gate_main_f32"] = {"rows": rows_gate,
+                                               "full": full_gate}
+            print(f"[14c] scan kernels at phase 6's shapes ({_statics_label(st)}; "
+                  f"probe: 16 rows, months 0-15, t_scan {t_probe}; full: W=0, "
+                  f"L={L}; CUDA events, min of {reps}; plain chain: one call), "
+                  f"float32 success at W=0 {out.counts[0].item() / n * 100:.3f}%, "
+                  f"on {report['card']}:")
+            print(f"[14c]   float32 scan_rows_kernel, 16 x {n:,}, vs the plain "
+                  f"chain's call, gate (b): {_gate(rows_gate)}")
+            print(f"[14c]   float32 scan_full_kernel, {n:,}, vs the plain chain's "
+                  f"call, gate (b) without the $5 allowance: {_gate(full_gate)}")
+            if not (rows_gate["ok"] and full_gate["ok"]):
+                raise AssertionError("[14c] the float32 scan kernels at the main "
+                                     "path's shapes fail gate (b)")
+            del plain, out, out_full
+    for what, shape in (("probe", f"16 x {n:,} x 600"), ("full", f"{n:,} x 600")):
+        print(f"[14c]   scan {what} {shape}: float32 {times[f'{what}_f32']:.3f} ms "
+              f"(bound {bounds[f'{what}_f32'][0]:.3f} ms, "
+              f"{bounds[f'{what}_f32'][1]}, share "
+              f"{bounds[f'{what}_f32'][0] / times[f'{what}_f32'] * 100:.1f}%) | "
+              f"float64 {times[f'{what}_f64']:.3f} ms (bound "
+              f"{bounds[f'{what}_f64'][0]:.3f} ms, share "
+              f"{bounds[f'{what}_f64'][0] / times[f'{what}_f64'] * 100:.1f}%) | "
+              f"plain chain float32 {times[f'{what}_plain']:.1f} ms "
+              f"(the {what} kernel: {report['times'][what]:.3f} ms)")
+    report["scan_times"], report["scan_bounds"] = times, bounds
+
+    # The float64 probe's block (16 rows per block) against its plain chain.
+    rows, st = blocks["f64"]
+    m = N_14C_F64
+    plan = ck.tile_plan(16, m, st, "probe", 8)
+    k = ck.scan_rows(rows, st, R, m, search, t_scan=t_probe)
+    p = ck.scan_rows_plain(rows, st, R, m, search, t_scan=t_probe)
+    same = torch.equal(k.success, p.success) and torch.equal(k.counts, p.counts)
+    ok = p.final_balance < BIG_14B
+    rel = float(((k.final_balance - p.final_balance).abs()
+                 / p.final_balance.abs().clamp_min(1.0))[ok].max())
+    bits = float((k.final_balance == p.final_balance).double().mean())
+    report["scan"]["parity_main_f64"] = {
+        "paths": m, "rows_per_block": plan.rows_per_block,
+        "flags_equal": same, "final_rel": rel, "bit_equal_finals": bits,
+        "skipped": int((~ok).sum())}
+    print(f"[14c]   float64 scan_rows_kernel, 16 x {m:,} (the main path's block: "
+          f"{plan.rows_per_block} rows x {ck.WARP} paths, {plan.months_per_chunk} "
+          f"months, {plan.smem_bytes} B) vs one plain-chain call: success flags "
+          f"equal {same}, final balances max rel {rel:.2e} (bit-equal share "
+          f"{bits:.6f}; beyond $1e9 skipped: {int((~ok).sum())}; bound "
+          f"{PARITY_14B:.0e})")
+    if not (same and rel <= PARITY_14B):
+        raise AssertionError("[14c] the float64 scan_rows_kernel differs from its "
+                             "plain chain at the main path's block")
 
 
 def _row_15(over, **extra):
@@ -2442,8 +2715,9 @@ def _rel(a, b):
 
 
 def phase_scan_routes(report):
-    """15: run_scenario_batch and sensitivity_ad on the scan (JAX's routes;
-    plain torch, no kernel launch)."""
+    """15: run_scenario_batch and sensitivity_ad on the scan (JAX's routes):
+    the batch and the finite difference through the scan kernel, the AD pass
+    through the plain chain."""
     import numpy as np
     import torch
     from monte_carlo_retirement_tpu_torch.engine import _build
@@ -2458,11 +2732,20 @@ def phase_scan_routes(report):
 
     out = report["scan_routes"] = {}
 
-    def no_kernel(tag, plain_ok=()):
+    def scan_kernel_only(tag):
+        """The scan ran its kernel and nothing else; its launches."""
         ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
-        if any(ran.values()) or any(v for k, v in plain.items()
-                                    if k not in plain_ok):
-            raise AssertionError(f"[{tag}] not the scan: {ran} {plain}")
+        if (not ran["scan"] or any(plain.values())
+                or any(v for k, v in ran.items() if k != "scan")):
+            raise AssertionError(f"[{tag}] not the scan kernel: {ran} {plain}")
+        return ran["scan"]
+
+    def ad_only(tag):
+        """The AD pass ran the plain chain by name, counted as "ad"."""
+        ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+        if (any(ran.values()) or plain["ad"] < 1
+                or any(v for k, v in plain.items() if k != "ad")):
+            raise AssertionError(f"[{tag}] not the AD pass's chain: {ran} {plain}")
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -2477,10 +2760,13 @@ def phase_scan_routes(report):
             for _, over in ROWS_15]
     months = [W_15_PARITY + d for d in OFFSETS_15]
     ck.reset_counts()
-    (card, t_card), (cpu, t_cpu) = (timed(lambda: run_scenario_batch(
-        cfgs, months, N_14B, seed=SEED, device=dev, backend="scan",
-        dtype=torch.float64)) for dev in ("cuda", "cpu"))
-    no_kernel("15a")
+    card, t_card = timed(lambda: run_scenario_batch(
+        cfgs, months, N_14B, seed=SEED, device="cuda", backend="scan",
+        dtype=torch.float64))
+    scan_kernel_only("15a")
+    cpu, t_cpu = timed(lambda: run_scenario_batch(
+        cfgs, months, N_14B, seed=SEED, device="cpu", backend="scan",
+        dtype=torch.float64))
     # Survivor counts: the card divides by n as a product with 1 / n, so a
     # percentage may differ from the CPU's in its last bit.
     survivors = [np.rint(r.success_probability * N_14B / 100.0).astype(int)
@@ -2491,7 +2777,8 @@ def phase_scan_routes(report):
                         "survivors": survivors[1].tolist()}
     print(f"[15a] run_scenario_batch(backend='scan') float64, {len(cfgs)} rows "
           f"(" + "; ".join(label for label, _ in ROWS_15) + f"), {N_14B:,} "
-          f"paths, R={R_14B}, W={months}: card vs CPU survivors equal {same} "
+          f"paths, R={R_14B}, W={months}: card (scan kernel) vs CPU (plain "
+          f"chain) survivors equal {same} "
           f"({survivors[1].tolist()}), statistics (success % and sigma too) "
           f"max rel {worst:.2e} (bound {PARITY_15A:.0e}); card {t_card:.1f} s, "
           f"CPU {t_cpu:.1f} s")
@@ -2509,7 +2796,7 @@ def phase_scan_routes(report):
     ck.reset_counts()
     scan, t_scan = timed(lambda: run_scenario_batch(
         cfgs, months, N_FULL_15, seed=SEED, device="cuda", backend="scan"))
-    no_kernel("15a")
+    report["scan_launches"]["batch"] = scan_kernel_only("15a")
     ck.reset_counts()
     kern, t_kern = timed(lambda: run_scenario_batch(
         cfgs, months, N_FULL_15, seed=SEED, device="cuda"))
@@ -2531,8 +2818,9 @@ def phase_scan_routes(report):
               f"{'ok' if row_ok else 'MISMATCH'}")
     out.update(batch_scan_s=t_scan, batch_kernel_s=t_kern)
     print(f"[15a] float32, {N_FULL_15:,} paths, R=50: scan route wall "
-          f"{t_scan:.2f} s (no kernel launched), grid-kernel route wall "
-          f"{t_kern:.2f} s ({groups} grid launches)")
+          f"{t_scan:.2f} s ({report['scan_launches']['batch']} scan kernel "
+          f"launches, one per group), grid-kernel route wall {t_kern:.2f} s "
+          f"({groups} grid launches)")
     if not ok:
         raise AssertionError("[15a] a row is beyond max(3 sigma, 0.5) points")
 
@@ -2542,7 +2830,7 @@ def phase_scan_routes(report):
     (card, t_card), (cpu, t_cpu) = (timed(lambda: sensitivity_ad(
         cfg, W_15_PARITY, num_paths=N_14B, seed=SEED, device=dev,
         backend="scan", dtype=torch.float64)) for dev in ("cuda", "cpu"))
-    no_kernel("15b", plain_ok=("ad",))
+    ad_only("15b")
     names = list(cpu["d_mean_final"])
     worst = max(_rel(card["mean_final_balance"], cpu["mean_final_balance"]),
                 _rel([card["d_mean_final"][k] for k in names],
@@ -2560,13 +2848,13 @@ def phase_scan_routes(report):
     ad, t_ad = timed(lambda: sensitivity_ad(cfg, GRID_W, num_paths=AD_PATHS,
                                             seed=SEED, device="cuda",
                                             backend="scan"))
-    no_kernel("15b", plain_ok=("ad",))
+    ad_only("15b")
     checked = ("monthly_expenses", "inv1_returns_mean")
     ck.reset_counts()
     fd, t_fd = timed(lambda: sensitivity_fd(
         cfg, GRID_W, num_paths=AD_PATHS, seed=SEED, params=list(checked),
         rel_step=0.002, abs_step=0.0005, device="cuda", backend="scan"))
-    no_kernel("15b")
+    report["scan_launches"]["fd"] = scan_kernel_only("15b")
     fd = {r.param: r.d_mean_final for r in fd}
     grads = ad["d_mean_final"]
     out.update(ad_scan_s=t_ad, fd_scan_s=t_fd,
@@ -2646,6 +2934,26 @@ def main() -> int:
         row("grid_kernel (simulate: one row)", "simulate", 1247, "sim_err",
             "simulate", "simulate_plain", "simulate"),
     ]
+    st, sb = report["scan_times"], report["scan_bounds"]
+    by_path = report["scan_launches"]
+    kernels.append({
+        "name": "scan_rows_kernel + scan_full_kernel", "route": "cuda",
+        "source": CU_SOURCE, "replaces": SCAN_REPLACES,
+        "launches": sum(by_path.values()),
+        "launches_main_path": by_path["main"],
+        "launches_cross_backend_path": by_path["cross_backend"],
+        "launches_scaling_path": by_path["scaling"],
+        "launches_batch_path": by_path["batch"],
+        "launches_fd_path": by_path["fd"],
+        "max_abs_err": report["scan_err"],
+        "ms": st["probe_f32"], "ms_float64": st["probe_f64"],
+        "plain_ms": st["probe_plain"],
+        "bound_ms": sb["probe_f32"][0], "bound_by": sb["probe_f32"][1],
+        "bound_ms_float64": sb["probe_f64"][0],
+        "ms_full": st["full_f32"], "ms_full_float64": st["full_f64"],
+        "plain_ms_full": st["full_plain"], "bound_ms_full": sb["full_f32"][0],
+        "bound_ms_full_float64": sb["full_f64"][0],
+        "library_ms": None})
     print("max_abs_err: probe, grid and simulate = largest |success % "
           "difference| over every check of that kernel; full = largest "
           "|withdrawal-rate difference| (points) over every full check; "
@@ -2661,7 +2969,16 @@ def main() -> int:
           "processes, uncounted) plus the tools (13a edge sweep, 13d sweeps, "
           "13e snippet: launches_tools_path; the campaign's and the checks' "
           "launches are comparisons and bench.py's run in its own process, "
-          "uncounted); *_all_on = the same under the all-on Statics")
+          "uncounted); *_all_on = the same under the all-on Statics. The scan "
+          "row (JAX's threefry scan, a lax.scan, as two kernels): ms / "
+          "ms_float64 = scan_rows_kernel at the probe's shape (16 x 1M x 600), "
+          "*_full = scan_full_kernel at 1M x 600 (phase 14c), plain = the "
+          "chain of torch ops in float32 (one call), max_abs_err = largest "
+          "|success % difference| vs the plain chain (14b), launches = the "
+          "float64 main path (14c: launches_main_path) plus "
+          "cross_backend_check (14d), scaling_demo (14e), the scan batch (15a) "
+          "and the scan's finite difference (15b); the AD pass (15b) runs the "
+          "plain chain, counted as ad")
     print(json.dumps({"kernels": kernels}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {

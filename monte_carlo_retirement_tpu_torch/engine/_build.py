@@ -6,12 +6,15 @@ The sources are ``engine/csrc/`` of this checkout, compiled for Hopper
 the sources or flags change: a library's file name carries their hash.
 
 The month-loop kernels (``month_loop.cu``) are built once per ``Statics``,
-as the JAX package builds one executable per Statics: a small generated
-unit defines every flag of the Statics as a constant and includes the
-source, so each library holds one instance of each kernel, with every
-disabled feature compiled out. A new Statics costs one nvcc run of a few
-seconds on first use; :func:`build_many` starts several at once. The
-stream check (``normals.cu``) is one library of its own.
+scalar type and draw source (a :class:`Unit`), as the JAX package builds
+one executable per Statics: a small generated unit defines every flag of
+the Statics as a constant and includes the source, so each library holds
+one instance of each kernel, with every disabled feature compiled out. The
+Philox source in float32 holds the probe, grid and full kernels; the
+threefry source, in float32 or float64, the scan's two kernels. A new
+library costs one nvcc run of a few seconds on first use;
+:func:`build_many` starts several at once. The stream check
+(``normals.cu``) is one library of its own.
 
 The libraries have a plain C interface; every pointer and the stream go
 through ``ctypes.c_void_p``, and every entry returns its launch's
@@ -31,10 +34,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("philox.cuh", "month_loop.cu", "normals.cu", "op_count.cu")
+SOURCES = ("philox.cuh", "threefry.cuh", "month_loop.cu", "normals.cu",
+           "op_count.cu")
 # No --use_fast_math: division and sqrt stay IEEE. -Xptxas -v only prints
 # each kernel's registers and spills into the build log.
 NVCC_FLAGS = (
@@ -45,6 +49,9 @@ NVCC_FLAGS = (
 COUNT_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-cubin",
 )
+# A float64 unit rounds every multiply and add on its own, as the plain
+# chain's separate torch ops do: no contraction into a fused multiply-add.
+DOUBLE_FLAGS = ("-fmad=false",)
 NVCC_TIMEOUT_S = 1200
 
 _LOCK = threading.Lock()
@@ -81,12 +88,35 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def statics_unit(statics, source: str = "month_loop.cu") -> str:
+class Unit(NamedTuple):
+    """One month-loop library: a Statics, the scalar type of its month step
+    ("float" or "double") and its draws ("philox": the probe, grid and full
+    kernels, float only; "threefry": the scan kernels). Wherever a library
+    is named, a bare Statics stands for ``Unit(statics)``."""
+
+    statics: object
+    real: str = "float"
+    draws: str = "philox"
+
+
+def _unit(lib) -> Optional[Unit]:
+    if lib is None or isinstance(lib, Unit):
+        return lib
+    return Unit(lib)
+
+
+def statics_unit(statics, source: str = "month_loop.cu", real: str = "float",
+                 draws: str = "philox") -> str:
     """The generated translation unit of one Statics: each flag as a
     constant, then ``source`` (the kernels, or the op-count unit). A
-    stream's kind is one int: bit 0 CPI-indexed, bit 1 duration-capped."""
+    stream's kind is one int: bit 0 CPI-indexed, bit 1 duration-capped.
+    The threefry draws add ``MCRT_THREEFRY``, float64 ``MCRT_REAL_DOUBLE``;
+    the Philox float32 unit is the flags alone."""
     if len(statics.stream_indexed) != len(statics.stream_capped):
         raise ValueError("stream_indexed and stream_capped differ in length")
+    if (real, draws) not in (("float", "philox"), ("float", "threefry"),
+                             ("double", "threefry")):
+        raise ValueError(f"no month-loop library draws {draws!r} in {real!r}")
     kinds = ", ".join(
         str(int(bool(i)) | 2 * int(bool(c)))
         for i, c in zip(statics.stream_indexed, statics.stream_capped)
@@ -106,38 +136,58 @@ def statics_unit(statics, source: str = "month_loop.cu") -> str:
     lines += [
         f"#define MCRT_NS {len(statics.stream_indexed)}",
         f"#define MCRT_STREAM_KINDS {kinds}",
-        f'#include "{source}"',
     ]
+    if draws == "threefry":
+        lines.append("#define MCRT_THREEFRY 1")
+    if real == "double":
+        lines.append("#define MCRT_REAL_DOUBLE 1")
+    lines.append(f'#include "{source}"')
     return "\n".join(lines) + "\n"
 
 
+def _unit_text(lib: Unit, source: str) -> str:
+    return statics_unit(lib.statics, source, lib.real, lib.draws)
+
+
+def _unit_flags(lib: Unit) -> Tuple[str, ...]:
+    return DOUBLE_FLAGS if lib.real == "double" else ()
+
+
+def _unit_tag(lib: Unit, source: str) -> str:
+    text = _unit_text(lib, source) + " ".join(_unit_flags(lib))
+    return hashlib.sha256(text.encode()).hexdigest()[:12]
+
+
 def library_path(statics=None) -> Path:
-    """The month-loop library of ``statics``; the stream check's for None."""
-    if statics is None:
+    """The month-loop library of ``statics`` (a Statics or a
+    :class:`Unit`); the stream check's for None."""
+    lib = _unit(statics)
+    if lib is None:
         return build_dir() / f"normals_{source_hash()}.so"
-    tag = hashlib.sha256(statics_unit(statics).encode()).hexdigest()[:12]
-    return build_dir() / f"month_loop_{source_hash()}_{tag}.so"
+    return build_dir() / (f"month_loop_{source_hash()}_"
+                          f"{_unit_tag(lib, 'month_loop.cu')}.so")
 
 
 def count_path(statics) -> Path:
-    """The op-count cubin of ``statics``."""
-    unit = statics_unit(statics, "op_count.cu")
-    tag = hashlib.sha256(unit.encode()).hexdigest()[:12]
+    """The op-count cubin of ``statics`` (a Statics or a :class:`Unit`)."""
+    tag = _unit_tag(_unit(statics), "op_count.cu")
     return build_dir() / f"op_count_{source_hash()}_{tag}.cubin"
 
 
 def _start(statics, out: Path):
-    """Write the unit (for a Statics) and start nvcc on it: a library, or
-    for a ``.cubin`` target the op-count unit."""
+    """Write the unit (for a Statics or a :class:`Unit`) and start nvcc on
+    it: a library, or for a ``.cubin`` target the op-count unit."""
     count = out.suffix == ".cubin"
-    if statics is None:
+    lib = _unit(statics)
+    if lib is None:
         unit = CSRC / "normals.cu"
     else:
         unit = out.with_suffix(".cu")
-        unit.write_text(statics_unit(statics, "op_count.cu" if count
-                                     else "month_loop.cu"))
+        unit.write_text(_unit_text(lib, "op_count.cu" if count
+                                   else "month_loop.cu"))
     tmp = out.with_name(f".{out.stem}.{os.getpid()}.tmp{out.suffix}")
-    flags = COUNT_FLAGS if count else NVCC_FLAGS
+    flags = (COUNT_FLAGS if count else NVCC_FLAGS) + (
+        _unit_flags(lib) if lib is not None else ())
     cmd = [_cuda_tool("nvcc"), *flags, "-I", str(CSRC), "-o", str(tmp),
            str(unit)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -147,9 +197,9 @@ def _start(statics, out: Path):
 
 def build_many(statics_list: Sequence[Optional[object]],
                count_statics: Sequence[object] = ()) -> Tuple[List[Path], int]:
-    """Build the libraries of every Statics in ``statics_list`` (None: the
-    stream check) and the op-count cubins of ``count_statics`` that do not
-    exist yet, one nvcc each, all started together; returns their paths in
+    """Build the libraries of every Statics or :class:`Unit` in
+    ``statics_list`` (None: the stream check) and the op-count cubins of
+    ``count_statics`` that do not exist yet, one nvcc each, all started together; returns their paths in
     order, the libraries' first, and how many were built."""
     paths = ([library_path(s) for s in statics_list]
              + [count_path(s) for s in count_statics])
@@ -193,18 +243,26 @@ def build_log(statics=None) -> str:
 
 
 def count_sass(statics) -> str:
-    """``cuobjdump -sass`` of the op-count cubin of ``statics`` (built
-    unless it exists)."""
+    """``cuobjdump -sass`` of the op-count cubin of ``statics`` (a Statics
+    or a :class:`Unit`; built unless it exists)."""
     cubin = build_many([], [statics])[0][0]
     return subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(cubin)],
                           capture_output=True, text=True, check=True,
                           timeout=NVCC_TIMEOUT_S).stdout
 
 
-def _bind(lib: ctypes.CDLL, statics) -> None:
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    if statics is None:
-        entries = {"mcrt_normals": [vp, i, vp, vp, vp]}
+def _bind(lib: ctypes.CDLL, unit: Optional[Unit]) -> None:
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if unit is None:
+        entries = {"mcrt_normals": [vp, i, vp, vp, vp],
+                   "mcrt_threefry": [vp, i, vp, vp, vp, vp]}
+    elif unit.draws == "threefry":
+        entries = {
+            "mcrt_scan_rows": [vp, vp, vp, i, i, i, i, i, i, i, i, i, i, ll,
+                               vp, vp, vp, vp],
+            "mcrt_scan_full": [vp, vp, vp, i, i, i, i, i, i, ll, vp, vp, vp,
+                               vp, vp],
+        }
     else:
         entries = {
             "mcrt_probe": [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp],
@@ -220,14 +278,15 @@ def _bind(lib: ctypes.CDLL, statics) -> None:
 
 
 def load(statics=None) -> ctypes.CDLL:
-    """The month-loop library of ``statics`` (the stream check's for None),
-    built on first use and loaded once per process."""
-    key = statics
+    """The month-loop library of ``statics`` (a Statics or a :class:`Unit`;
+    the stream check's for None), built on first use and loaded once per
+    process."""
+    key = _unit(statics)
     with _LOCK:
         lib = _LIBS.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(statics)))
-            _bind(lib, statics)
+            lib = ctypes.CDLL(str(build(key)))
+            _bind(lib, key)
             _LIBS[key] = lib
         return lib
 

@@ -1,17 +1,20 @@
 """The least time the card could take for a month-loop launch.
 
 A launch's work is counted in parts (``cuda_kernel.tile_work`` for the
-probe and grid kernels, :func:`full_work` for the full kernel): draws
-(path-months), parameter applications of the grid's rows, accumulation
-months and retirement months (row-path-months). Each part is priced from
-the SASS of its one-step kernel in ``csrc/op_count.cu``
-(``_build.count_sass``):
+probe, grid and scan-rows kernels, :func:`full_work` for the full and
+scan-full kernels): draws (path-months), parameter applications of the
+grid's rows, accumulation months and retirement months (row-path-months).
+Each part is priced from the SASS of its one-step kernel in
+``csrc/op_count.cu`` (``_build.count_sass``; for the scan kernels, the
+op-count unit of their scalar type and threefry draws):
 
   * every instruction of the kernel's main body (up to its unpredicated
     EXIT; the slow-path subroutines of IEEE division and square root after
     it are not counted) goes to its pipe, with the compute-capability-9.0
     throughputs per SM per clock of the CUDA C++ Programming Guide's
     arithmetic-instruction table: FP32 add, multiply and multiply-add 128;
+    FP64 add, multiply, multiply-add and compare 64 (in float64, exp and
+    log1p are software sequences of these, not MUFU);
     32-bit integer multiply-add 64 (it takes the FMA pipe's heavy half);
     other integer, compare, min/max, select, logic and shift 64;
     special functions (MUFU) and conversions 16; warp shuffles 32;
@@ -23,6 +26,12 @@ the SASS of its one-step kernel in ``csrc/op_count.cu``
   * a month's yearly code (annual bills, the guardrails' year start, the
     terminal settle) is charged once in 12 months: ``plain + (every branch
     - plain) / 12``;
+  * a threefry draw's normals branch into the bands of XLA's erfinv, which
+    the main body would count all of: the op-count unit runs band 0 for
+    every normal, and each colder band (``count_normal_band1/2``) is added
+    at the share of the normals that take it (:func:`band_shares`), its
+    count less band 0's; warps that split between bands run both, which is
+    the kernel's cost, not the draw's work;
   * a launch's loads are the sums of its parts' loads times their counts,
     and it takes at least its busiest load: the pipes run side by side.
 
@@ -33,17 +42,20 @@ parameter block) over 3.35 TB/s. The bound is the larger of the two.
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 MEMORY_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 
 # Lanes per SM per clock (CUDA C++ Programming Guide, compute capability 9.0).
-THROUGHPUT = {"fp32": 128, "imad": 64, "alu": 64, "xu": 16, "shfl": 32}
+THROUGHPUT = {"fp32": 128, "fp64": 64, "imad": 64, "alu": 64, "xu": 16,
+              "shfl": 32}
 ISSUE_LANES = 128
 
 _FP32 = {"FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I", "HADD2",
          "HMUL2", "HFMA2"}
+_FP64 = {"DADD", "DMUL", "DFMA", "DSETP", "DMNMX"}
 _IMAD = {"IMAD", "IMUL", "IMAD32I", "IMUL32I"}
 _XU = {"MUFU", "F2F", "F2I", "I2F", "FRND", "POPC", "FLO", "BREV"}
 _SHFL = {"SHFL"}
@@ -57,6 +69,12 @@ PARTS = ("count_draw_probe", "count_draw_grid", "count_growth", "count_accum",
          "count_accum_plain", "count_retire", "count_retire_plain",
          "count_retire_track", "count_retire_track_plain")
 
+# One normal through each band of XLA's erfinv (csrc/op_count.cu), and the
+# w = -log1p(-u^2) at which each band after the first begins, by the scan
+# unit's scalar type.
+BANDS = ("count_normal_band0", "count_normal_band1", "count_normal_band2")
+ERFINV_EDGES = {"float": (5.0,), "double": (6.25, 16.0)}
+
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
@@ -69,6 +87,8 @@ def pipe_of(opcode: str):
         return None
     if base in _FP32:
         return "fp32"
+    if base in _FP64:
+        return "fp64"
     if base in _IMAD:
         return "imad"
     if base in _XU:
@@ -113,28 +133,44 @@ def sass_pipes(sass: str) -> Dict[str, Dict[str, int]]:
 def loads(pipes: Dict[str, int]) -> Dict[str, float]:
     """SM-cycles per thread of one part on each pipe and on issue; FP32 and
     integer multiply-adds share the FMA pipe."""
-    out = {p: pipes[p] / THROUGHPUT[p] for p in THROUGHPUT}
-    out["fma"] = (pipes["fp32"] + pipes["imad"]) / THROUGHPUT["fp32"]
+    out = {p: pipes.get(p, 0) / THROUGHPUT[p] for p in THROUGHPUT}
+    out["fma"] = (pipes.get("fp32", 0) + pipes.get("imad", 0)) / THROUGHPUT["fp32"]
     out["issue"] = sum(pipes.values()) / ISSUE_LANES
     return out
 
 
-def part_loads(sass: str) -> Dict[str, Dict[str, float]]:
+def band_shares(real: str) -> Tuple[float, ...]:
+    """The share of the normals whose erfinv runs each band, in a ``real``
+    ("float" or "double") unit: u is uniform on (-1, 1), and w >= e exactly
+    where |u| >= sqrt(1 - exp(-e))."""
+    tails = ([1.0] + [1.0 - math.sqrt(-math.expm1(-e))
+                      for e in ERFINV_EDGES[real]] + [0.0])
+    return tuple(a - b for a, b in zip(tails, tails[1:]))
+
+
+def part_loads(sass: str, normals: int = 0,
+               real: str = "float") -> Dict[str, Dict[str, float]]:
     """The loads of each part of the month loop, the yearly code charged
-    once in 12 months."""
+    once in 12 months; a scan unit's draw of ``normals`` threefry normals
+    gains its colder erfinv bands at their shares."""
     pipes = sass_pipes(sass)
-    missing = [p for p in PARTS if p not in pipes]
+    bands = BANDS[:len(ERFINV_EDGES[real]) + 1] if normals else ()
+    missing = [p for p in PARTS + bands if p not in pipes]
     if missing:
         raise ValueError(f"op-count kernels missing from the SASS: {missing}")
-    c = {name: loads(pipes[name]) for name in PARTS}
+    c = {name: loads(pipes[name]) for name in PARTS + bands}
+    cold = {k: 0.0 for k in c["count_draw_probe"]}
+    for name, share in zip(bands[1:], band_shares(real)[1:]):
+        for k in cold:
+            cold[k] += normals * share * (c[name][k] - c[bands[0]][k])
 
     def month(general, plain):
         return {k: c[plain][k] + max(0.0, c[general][k] - c[plain][k]) / 12.0
                 for k in c[plain]}
 
     return {
-        "draw_probe": c["count_draw_probe"],
-        "draw_grid": c["count_draw_grid"],
+        "draw_probe": {k: v + cold[k] for k, v in c["count_draw_probe"].items()},
+        "draw_grid": {k: v + cold[k] for k, v in c["count_draw_grid"].items()},
         "growth": c["count_growth"],
         "accum": month("count_accum", "count_accum_plain"),
         "retire": month("count_retire", "count_retire_plain"),
@@ -142,18 +178,24 @@ def part_loads(sass: str) -> Dict[str, Dict[str, float]]:
     }
 
 
-def full_work(n_paths: int, working_months: int, t_end: int) -> Dict[str, int]:
-    """The full kernel's work: every path draws and runs every month."""
+def full_work(n_paths: int, working_months: int, t_end: int,
+              acc_cap: Optional[int] = None) -> Dict[str, int]:
+    """The full kernel's work: every path draws and runs every month it
+    runs, its accumulation months up to W (or the scan's ``acc_cap``,
+    where lower) and its retirement months W+1..t_end."""
     n, w, t = int(n_paths), int(working_months), int(t_end)
-    return {"draws": n * t, "accum": n * w, "retire": n * (t - w)}
+    acc = w if acc_cap is None else max(0, min(w, int(acc_cap)))
+    return {"draws": n * (acc + t - w), "accum": n * acc, "retire": n * (t - w)}
 
 
 def bound_ms(kind: str, work: Dict[str, int],
              parts: Dict[str, Dict[str, float]], out_bytes: int,
              sm_count: int, clock_hz: float) -> Tuple[float, str]:
     """(bound in ms, "operations" or "bytes") of a ``kind`` launch
-    ("probe", "grid" or "full") doing ``work`` and writing ``out_bytes``;
-    ``parts`` from :func:`part_loads`."""
+    ("probe", "grid" or "full"; the scan-rows kernel is "probe" with one
+    shared parameter block and "grid" with one per row, the scan-full
+    kernel "full") doing ``work`` and writing ``out_bytes``; ``parts``
+    from :func:`part_loads` of the launch's own library."""
     if kind == "probe":
         terms = [("draw_probe", work["draws"]), ("accum", work["accum"]),
                  ("retire", work["retire"])]

@@ -52,11 +52,34 @@
 //     in-thread through the same helpers and runs the same month steps
 //     (start_path, accum_month, snapshot, retire_month), plus the records.
 //
-// Compile-time structure: one library per Statics. engine/_build.py passes
-// every flag of `Statics` (tax system and annual bill per asset, the kind of
-// each income stream, antithetic pairing, glide, guardrails, crashes,
-// longevity) as a -D constant, so every disabled branch compiles out, as on
-// the TPU, and a library holds exactly one instance of each kernel.
+// The scan kernels (a library built with MCRT_THREEFRY, in float64 with
+// MCRT_REAL_DOUBLE too) replace the compiled form of JAX's threefry scan,
+// simulate_paths (monte_carlo_retirement_tpu/engine/kernel.py:124: a
+// lax.scan that XLA fuses into one device loop with the carry in registers
+// and the draws made where they are used, not a pallas_call):
+//   * scan_rows_kernel: tile_body on the scan's draws -- K rows x n paths,
+//     one shared parameter block (the probe, runner.py _probe_impl) or one
+//     per row (the batch, scenario_batch.py _batch_impl) -> per-path alive
+//     flag and final balance;
+//   * scan_full_kernel: full_kernel's one thread per path -> the tracked
+//     fields of simulate_paths(traj_len > 0).
+// Every month step is templated on its scalar type and takes its draws from
+// a compile-time source: Philox (float32) for the four kernels above, JAX's
+// threefry (threefry.cuh; float32 or float64) for the scan. The scan adds
+// its accumulation cap, acc_months = t_scan - 12 R: a row whose W is above
+// it accumulates no further, and still retires after month W. Its tile holds
+// each path-month's three threefry normals (three 20-round hashes and XLA's
+// erfinv) once for the block's rows. What bounds it is the same as above:
+// issue slots, and in float64 the FP64 pipe (64 lanes per SM per clock,
+// half the FP32 rate; exp and log1p are software sequences there, not MUFU).
+//
+// Compile-time structure: one library per Statics, scalar type and draw
+// source. engine/_build.py passes every flag of `Statics` (tax system and
+// annual bill per asset, the kind of each income stream, antithetic pairing,
+// glide, guardrails, crashes, longevity) as a -D constant, so every disabled
+// branch compiles out, as on the TPU, and a library holds exactly one
+// instance of each kernel: the Philox kernels in float32, or the scan's in
+// float32 (MCRT_THREEFRY) or float64 (MCRT_THREEFRY and MCRT_REAL_DOUBLE).
 //
 // Grid scenarios read their row of the (K, F.NUM + 5*S) parameter block once,
 // into registers (the TPU kernel measured per-use parameter reads in the loop
@@ -72,6 +95,7 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "threefry.cuh"
 
 #if !defined(MCRT_USE_REAL1) || !defined(MCRT_USE_REAL2) ||            \
     !defined(MCRT_BILL1) || !defined(MCRT_BILL2) ||                    \
@@ -80,6 +104,15 @@
     !defined(MCRT_MORTALITY) || !defined(MCRT_NS) ||                   \
     !defined(MCRT_STREAM_KINDS)
 #error "the Statics are -D flags: build through engine/_build.py"
+#endif
+#ifndef MCRT_THREEFRY
+#define MCRT_THREEFRY 0
+#endif
+#ifndef MCRT_REAL_DOUBLE
+#define MCRT_REAL_DOUBLE 0
+#endif
+#if MCRT_REAL_DOUBLE && !MCRT_THREEFRY
+#error "the Philox kernels run in float32; float64 is the scan's"
 #endif
 
 namespace {
@@ -92,11 +125,61 @@ constexpr int kBlockPaths = 4096;  // paths per Philox key (global block)
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
 constexpr int kDefaultSmem = 49152;
 constexpr int kMonths = 12;
-constexpr float kEps = 1e-6f;
-constexpr float kFailRtol = 2e-5f;  // fail_rtol(float32)
 
 // ---------------------------------------------------------------------------
-// This library's Statics (pallas_kernel.Statics)
+// The scalar type: float32 or float64 arithmetic of one month step
+// ---------------------------------------------------------------------------
+template <class T>
+struct Num;
+template <>
+struct Num<float> {
+  static constexpr float eps = 1e-6f;
+  static constexpr float fail_rtol = 2e-5f;  // fail_rtol(float32)
+};
+template <>
+struct Num<double> {
+  static constexpr double eps = 1e-6;
+  static constexpr double fail_rtol = 0.0;  // fail_rtol(float64)
+};
+
+__device__ __forceinline__ float r_exp(float x) { return expf(x); }
+__device__ __forceinline__ double r_exp(double x) { return exp(x); }
+__device__ __forceinline__ float r_log(float x) { return logf(x); }
+__device__ __forceinline__ double r_log(double x) { return log(x); }
+__device__ __forceinline__ float r_log1p(float x) { return log1pf(x); }
+__device__ __forceinline__ double r_log1p(double x) { return log1p(x); }
+__device__ __forceinline__ float r_ceil(float x) { return ceilf(x); }
+__device__ __forceinline__ double r_ceil(double x) { return ceil(x); }
+__device__ __forceinline__ float r_abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double r_abs(double x) { return fabs(x); }
+__device__ __forceinline__ float r_min(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double r_min(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float r_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double r_max(double a, double b) { return fmax(a, b); }
+// Rounded on their own: never contracted into a multiply-add.
+__device__ __forceinline__ float r_mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double r_mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float r_sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double r_sub_rn(double a, double b) { return __dsub_rn(a, b); }
+template <class T>
+__device__ __forceinline__ T r_inf();
+template <>
+__device__ __forceinline__ float r_inf<float>() { return __int_as_float(0x7f800000); }
+template <>
+__device__ __forceinline__ double r_inf<double>() {
+  return __longlong_as_double(0x7ff0000000000000ll);
+}
+template <class T>
+__device__ __forceinline__ T r_nan();
+template <>
+__device__ __forceinline__ float r_nan<float>() { return __int_as_float(0x7fc00000); }
+template <>
+__device__ __forceinline__ double r_nan<double>() {
+  return __longlong_as_double(0x7ff8000000000000ll);
+}
+
+// ---------------------------------------------------------------------------
+// This library's Statics (pallas_kernel.Statics) and draw source
 // ---------------------------------------------------------------------------
 constexpr bool kUseReal1 = MCRT_USE_REAL1 != 0;
 constexpr bool kUseReal2 = MCRT_USE_REAL2 != 0;
@@ -110,8 +193,16 @@ constexpr bool kJumps = MCRT_JUMPS != 0;
 constexpr bool kMortality = MCRT_MORTALITY != 0;
 constexpr int kNS = MCRT_NS;
 constexpr int kSlots = kNS > 0 ? kNS : 1;
+constexpr bool kThreefry = MCRT_THREEFRY != 0;
+#if MCRT_REAL_DOUBLE
+using Real = double;  // the scan kernels' scalar type
+#else
+using Real = float;
+#endif
+// A float64 thread holds twice the registers: one 16-row block per SM.
+constexpr int kScanTileBlocks = sizeof(Real) == 8 ? 1 : kTileBlocks;
 
-// Floats per path-month in a draw tile: the probe's growth factors, or the
+// Values per path-month in a draw tile: the probe's growth factors, or the
 // grid's normals (plus the crash uniform and normal).
 constexpr int kProbeFields = 3;
 constexpr int kGridFields = kJumps ? 5 : 3;
@@ -160,16 +251,17 @@ enum { I_W = 0, I_T_END, I_SEED, I_BLOCK_OFF, NUM_IPARAMS };
 // ---------------------------------------------------------------------------
 // Scenario parameters, read once per thread; a disabled feature reads none.
 // ---------------------------------------------------------------------------
+template <class T>
 struct Scenario {
-  float mu1, s1, mui, si, mup, sp, rho, rho_c;
-  float alloc1, init_bal, contrib0, log1p_growth, expenses, r1, r2;
-  float ann1, ann2, alloc1_f;
-  float gr_up, gr_lo, gr_adj, gr_floor, gr_cap;
-  float jp, jmu, jsig, jbeta, jc1, jc2;
-  float mort_g0, mort_b12, mort_cap;
-  float amount[kSlots], from_t0[kSlots], duration[kSlots], net[kSlots];
+  T mu1, s1, mui, si, mup, sp, rho, rho_c;
+  T alloc1, init_bal, contrib0, log1p_growth, expenses, r1, r2;
+  T ann1, ann2, alloc1_f;
+  T gr_up, gr_lo, gr_adj, gr_floor, gr_cap;
+  T jp, jmu, jsig, jbeta, jc1, jc2;
+  T mort_g0, mort_b12, mort_cap;
+  T amount[kSlots], from_t0[kSlots], duration[kSlots], net[kSlots];
 
-  __device__ __forceinline__ explicit Scenario(const float* __restrict__ fp) {
+  __device__ __forceinline__ explicit Scenario(const T* __restrict__ fp) {
     mu1 = fp[F_MU1_M];
     s1 = fp[F_S1_M];
     mui = fp[F_MUI_M];
@@ -213,11 +305,21 @@ struct Scenario {
       amount[s] = fp[NUM_FPARAMS + s];
       from_t0[s] = fp[NUM_FPARAMS + kNS + s];
       duration[s] = fp[NUM_FPARAMS + 2 * kNS + s];
-      net[s] = 1.0f - fp[NUM_FPARAMS + 4 * kNS + s];
+      net[s] = T(1) - fp[NUM_FPARAMS + 4 * kNS + s];
     }
   }
 };
 
+// One path-month's draw: the three normals and, with crashes, the crash
+// uniform and normal, antithetic sign and reflection applied.
+template <class T>
+struct Shock {
+  T z_eq, z_ind, z_prem, u, z_j;
+};
+
+// ---------------------------------------------------------------------------
+// Draw source 1: the port's Philox stream (float32)
+// ---------------------------------------------------------------------------
 // A path's Philox key. Antithetic pairing (pallas_kernel.py:475-482): global
 // blocks 2k and 2k+1 share key block k; the odd one negates every normal
 // and reflects every uniform.
@@ -236,15 +338,9 @@ __device__ __forceinline__ PathKey path_key(uint32_t seed, uint32_t gblock,
   return key;
 }
 
-// One path-month's draw: the three normals and, with crashes, the crash
-// uniform and normal, antithetic sign and reflection applied.
-struct Shock {
-  float z_eq, z_ind, z_prem, u, z_j;
-};
-
-__device__ __forceinline__ Shock month_shock(int m, const PathKey& key) {
+__device__ __forceinline__ Shock<float> month_shock(int m, const PathKey& key) {
   const uint4 w = mcrt::month_words(key.seed, key.block, m, key.lane);
-  Shock s;
+  Shock<float> s;
   s.z_eq = mcrt::bits_to_normal(w.x);
   s.z_ind = mcrt::bits_to_normal(w.y);
   s.z_prem = mcrt::bits_to_normal(w.z);
@@ -265,85 +361,140 @@ __device__ __forceinline__ Shock month_shock(int m, const PathKey& key) {
   return s;
 }
 
+// Longevity (pallas_kernel.py:530-556): one uniform per path from the
+// salted key.
+__device__ __forceinline__ float mortality_uniform(const PathKey& key) {
+  float u = mcrt::bits_to_uniform(
+      mcrt::mortality_word(key.seed, key.block, key.lane));
+  if constexpr (kAntithetic) {
+    if (key.sign < 0.0f) u = 1.0f - u;
+  }
+  return u;
+}
+
+// The launch's Philox paths: global block p / 4096 + the dispatch's offset.
+struct PhiloxPaths {
+  uint32_t seed;
+  int block_offset;
+  __device__ __forceinline__ PathKey path(int p) const {
+    return path_key(seed, static_cast<uint32_t>(p / kBlockPaths + block_offset),
+                    static_cast<uint32_t>(p % kBlockPaths));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Draw source 2: the JAX scan's threefry stream (threefry.cuh)
+// ---------------------------------------------------------------------------
+template <class T>
+using ScanPath = mcrt::ScanPath<T, kAntithetic>;
+
+template <class T>
+__device__ __forceinline__ Shock<T> month_shock(int m, const ScanPath<T>& path) {
+  Shock<T> s;
+  path.normals(m, s.z_eq, s.z_ind, s.z_prem);
+  if constexpr (kJumps) path.crash(m, s.u, s.z_j);
+  return s;
+}
+
+template <class T>
+__device__ __forceinline__ T mortality_uniform(const ScanPath<T>& path) {
+  return path.mortality();
+}
+
+// The launch's scan paths: global row row_offset + p (a shard's offset).
+template <class T>
+struct ScanPaths {
+  const uint32_t* keys;
+  long long row_offset;
+  __device__ __forceinline__ ScanPath<T> path(int p) const {
+    return ScanPath<T>(keys, row_offset + p);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The month step's arithmetic (pallas_kernel.py:587-1171)
+// ---------------------------------------------------------------------------
 // Monthly gross factors (g1, gi, g2) of one path from its draw
 // (pallas_kernel.py:745-771); with crashes, the compensated jump folds into
 // the exponents (draw_jump, :507-528).
-__device__ __forceinline__ void growth(const Scenario& sc, const Shock& s,
-                                       float& g1, float& gi, float& g2) {
-  const float z_inf = sc.rho * s.z_eq + sc.rho_c * s.z_ind;
+template <class T>
+__device__ __forceinline__ void growth(const Scenario<T>& sc, const Shock<T>& s,
+                                       T& g1, T& gi, T& g2) {
+  const T z_inf = sc.rho * s.z_eq + sc.rho_c * s.z_ind;
   if constexpr (kJumps) {
-    const float jl = s.u < sc.jp ? sc.jmu + sc.jsig * s.z_j : 0.0f;
-    g1 = expf(sc.mu1 + sc.s1 * s.z_eq + (jl - sc.jc1));
-    gi = expf(sc.mui + sc.si * z_inf);
-    g2 = gi * expf(sc.mup + sc.sp * s.z_prem + (sc.jbeta * jl - sc.jc2));
+    const T jl = s.u < sc.jp ? sc.jmu + sc.jsig * s.z_j : T(0);
+    g1 = r_exp(sc.mu1 + sc.s1 * s.z_eq + (jl - sc.jc1));
+    gi = r_exp(sc.mui + sc.si * z_inf);
+    g2 = gi * r_exp(sc.mup + sc.sp * s.z_prem + (sc.jbeta * jl - sc.jc2));
   } else {
-    g1 = expf(sc.mu1 + sc.s1 * s.z_eq);
-    gi = expf(sc.mui + sc.si * z_inf);
-    g2 = gi * expf(sc.mup + sc.sp * s.z_prem);
+    g1 = r_exp(sc.mu1 + sc.s1 * s.z_eq);
+    gi = r_exp(sc.mui + sc.si * z_inf);
+    g2 = gi * r_exp(sc.mup + sc.sp * s.z_prem);
   }
 }
 
 // Remaining lifetime in retirement months (ops/shocks.py
 // gompertz_remaining_months, the overflow-stable two-branch form): u = 0 is
 // +inf, absorbed by the max-age cap; b12 = 0 (no rule) never expires.
-__device__ __forceinline__ float gompertz_remaining_months(float u, float g0,
-                                                           float b12,
-                                                           float cap,
-                                                           float wf) {
-  const float g_ret = g0 - wf / b12;
-  const float log_u = logf(u);
-  const float t = b12 * (g_ret > 0.0f ? g_ret + logf(expf(-g_ret) - log_u)
-                                      : log1pf(-log_u * expf(g_ret)));
-  const float d = fminf(t, fmaxf(0.0f, cap - wf));
-  return b12 > 0.0f ? d : __int_as_float(0x7f800000);
+template <class T>
+__device__ __forceinline__ T gompertz_remaining_months(T u, T g0, T b12, T cap,
+                                                       T wf) {
+  const T g_ret = g0 - wf / b12;
+  const T log_u = r_log(u);
+  const T t = b12 * (g_ret > T(0) ? g_ret + r_log(r_exp(-g_ret) - log_u)
+                                  : r_log1p(-log_u * r_exp(g_ret)));
+  const T d = r_min(t, r_max(T(0), cap - wf));
+  return b12 > T(0) ? d : r_inf<T>();
 }
 
 // Sale profile (pallas_kernel.py:587-598): tax per gross dollar, net per
 // gross dollar, full-liquidation net capacity.
-template <bool USE>
-__device__ __forceinline__ void profile(float b, float c, float rate,
-                                        float& eff, float& nf, float& nc) {
+template <bool USE, class T>
+__device__ __forceinline__ void profile(T b, T c, T rate, T& eff, T& nf,
+                                        T& nc) {
+  constexpr T kEps = Num<T>::eps;
   if (!USE) {
-    eff = 0.0f;
-    nf = 1.0f;
-    nc = b > kEps ? b : 0.0f;
+    eff = T(0);
+    nf = T(1);
+    nc = b > kEps ? b : T(0);
     return;
   }
-  const float safe = b > kEps ? b : 1.0f;
-  const float gf = fmaxf(0.0f, b - c) / safe;
+  const T safe = b > kEps ? b : T(1);
+  const T gf = r_max(T(0), b - c) / safe;
   eff = gf * rate;
-  nf = 1.0f - eff;
-  nc = b > kEps ? b * nf : 0.0f;
+  nf = T(1) - eff;
+  nc = b > kEps ? b * nf : T(0);
 }
 
 // Tax-aware exact-post-tax rebalance toward a1 (pallas_kernel.py:600-638).
-__device__ __forceinline__ void rebalance_lite(float& b1, float& c1, float& b2,
-                                               float& c2, float eff1,
-                                               float eff2, float a1,
+template <class T>
+__device__ __forceinline__ void rebalance_lite(T& b1, T& c1, T& b2, T& c2,
+                                               T eff1, T eff2, T a1,
                                                bool extra_noop) {
-  const float total = b1 + b2;
-  const float drift1 = b1 - total * a1;
-  const float adrift = fabsf(drift1);
+  constexpr T kEps = Num<T>::eps;
+  const T total = b1 + b2;
+  const T drift1 = b1 - total * a1;
+  const T adrift = r_abs(drift1);
   if (extra_noop || total <= kEps || adrift <= kEps) return;
-  const bool sell1 = drift1 > 0.0f;
-  const float bal_s = sell1 ? b1 : b2;
-  const float basis_s = sell1 ? c1 : c2;
-  const float eff_s = sell1 ? eff1 : eff2;
-  const float alloc_s = sell1 ? a1 : 1.0f - a1;
-  const float denom = fmaxf(kEps, 1.0f - alloc_s * eff_s);
-  const float gross_s = fminf(bal_s, adrift / denom);
-  const float frac_s = gross_s / (bal_s > kEps ? bal_s : 1.0f);
-  const float net_p = gross_s * (1.0f - eff_s);
-  const float new_sb = bal_s - gross_s;
-  const float new_sc = basis_s - basis_s * frac_s;
-  const float bal_b = (sell1 ? b2 : b1) + net_p;
-  const float basis_b = (sell1 ? c2 : c1) + net_p;
-  float ob1 = sell1 ? new_sb : bal_b;
-  float oc1 = sell1 ? new_sc : basis_b;
-  float ob2 = sell1 ? bal_b : new_sb;
-  float oc2 = sell1 ? basis_b : new_sc;
-  if (ob1 <= kEps) { ob1 = 0.0f; oc1 = 0.0f; }
-  if (ob2 <= kEps) { ob2 = 0.0f; oc2 = 0.0f; }
+  const bool sell1 = drift1 > T(0);
+  const T bal_s = sell1 ? b1 : b2;
+  const T basis_s = sell1 ? c1 : c2;
+  const T eff_s = sell1 ? eff1 : eff2;
+  const T alloc_s = sell1 ? a1 : T(1) - a1;
+  const T denom = r_max(kEps, T(1) - alloc_s * eff_s);
+  const T gross_s = r_min(bal_s, adrift / denom);
+  const T frac_s = gross_s / (bal_s > kEps ? bal_s : T(1));
+  const T net_p = gross_s * (T(1) - eff_s);
+  const T new_sb = bal_s - gross_s;
+  const T new_sc = basis_s - basis_s * frac_s;
+  const T bal_b = (sell1 ? b2 : b1) + net_p;
+  const T basis_b = (sell1 ? c2 : c1) + net_p;
+  T ob1 = sell1 ? new_sb : bal_b;
+  T oc1 = sell1 ? new_sc : basis_b;
+  T ob2 = sell1 ? bal_b : new_sb;
+  T oc2 = sell1 ? basis_b : new_sc;
+  if (ob1 <= kEps) { ob1 = T(0); oc1 = T(0); }
+  if (ob2 <= kEps) { ob2 = T(0); oc2 = T(0); }
   b1 = ob1; c1 = oc1; b2 = ob2; c2 = oc2;
 }
 
@@ -352,26 +503,26 @@ __device__ __forceinline__ void rebalance_lite(float& b1, float& c1, float& b2,
 // (:657-687): one sale fraction for both assets, snapped to 1 when the
 // target reaches the capacity, zero where ``on`` is false. Returns the net
 // delivered; gross1 + gross2 is what was sold.
-__device__ __forceinline__ float sell_pro_rata(float& b1, float& c1,
-                                               float& b2, float& c2,
-                                               float target, float nc1,
-                                               float nc2, float nf1,
-                                               float nf2, bool on,
-                                               float& gross1, float& gross2) {
-  const float tnc = nc1 + nc2;
-  const float frac =
-      fminf(1.0f, target >= tnc ? 1.0f : target / fmaxf(tnc, kEps)) *
-      (on ? 1.0f : 0.0f);
-  const float keep = 1.0f - frac;
-  gross1 = nc1 > 0.0f ? b1 * frac : 0.0f;
-  gross2 = nc2 > 0.0f ? b2 * frac : 0.0f;
-  const float nw = gross1 * nf1 + gross2 * nf2;
-  if (nc1 > 0.0f) c1 *= keep;
-  if (nc2 > 0.0f) c2 *= keep;
+template <class T>
+__device__ __forceinline__ T sell_pro_rata(T& b1, T& c1, T& b2, T& c2,
+                                           T target, T nc1, T nc2, T nf1,
+                                           T nf2, bool on, T& gross1,
+                                           T& gross2) {
+  constexpr T kEps = Num<T>::eps;
+  const T tnc = nc1 + nc2;
+  const T frac =
+      r_min(T(1), target >= tnc ? T(1) : target / r_max(tnc, kEps)) *
+      (on ? T(1) : T(0));
+  const T keep = T(1) - frac;
+  gross1 = nc1 > T(0) ? b1 * frac : T(0);
+  gross2 = nc2 > T(0) ? b2 * frac : T(0);
+  const T nw = gross1 * nf1 + gross2 * nf2;
+  if (nc1 > T(0)) c1 *= keep;
+  if (nc2 > T(0)) c2 *= keep;
   b1 -= gross1;
   b2 -= gross2;
-  if (b1 <= kEps) { b1 = 0.0f; c1 = 0.0f; }
-  if (b2 <= kEps) { b2 = 0.0f; c2 = 0.0f; }
+  if (b1 <= kEps) { b1 = T(0); c1 = T(0); }
+  if (b2 <= kEps) { b2 = T(0); c2 = T(0); }
   return nw;
 }
 
@@ -379,22 +530,22 @@ __device__ __forceinline__ float sell_pro_rata(float& b1, float& c1,
 // pallas_kernel.py:645-690): the bill on the period's positive market gains,
 // paid pro-rata by net capacity, then an exact-post-tax rebalance toward a1.
 // Returns true when the capacity could not cover the bill.
-__device__ __forceinline__ bool annual_tax(const Scenario& sc, float& b1,
-                                           float& c1, float& b2, float& c2,
-                                           float g1a, float g2a, float a1) {
-  float due1 = 0.0f, due2 = 0.0f;
-  if constexpr (kBill1) due1 = fmaxf(0.0f, g1a) * sc.ann1;
-  if constexpr (kBill2) due2 = fmaxf(0.0f, g2a) * sc.ann2;
-  const float total_due = due1 + due2;
-  float eff1, nf1, nc1, eff2, nf2, nc2;
+template <class T>
+__device__ __forceinline__ bool annual_tax(const Scenario<T>& sc, T& b1, T& c1,
+                                           T& b2, T& c2, T g1a, T g2a, T a1) {
+  T due1 = T(0), due2 = T(0);
+  if constexpr (kBill1) due1 = r_max(T(0), g1a) * sc.ann1;
+  if constexpr (kBill2) due2 = r_max(T(0), g2a) * sc.ann2;
+  const T total_due = due1 + due2;
+  T eff1, nf1, nc1, eff2, nf2, nc2;
   profile<kUseReal1>(b1, c1, sc.r1, eff1, nf1, nc1);
   profile<kUseReal2>(b2, c2, sc.r2, eff2, nf2, nc2);
-  const float tnc = nc1 + nc2;
-  const float payment = fminf(total_due, tnc);
-  const float tol = kEps + kFailRtol * (total_due + tnc);
-  float gross1, gross2;
+  const T tnc = nc1 + nc2;
+  const T payment = r_min(total_due, tnc);
+  const T tol = Num<T>::eps + Num<T>::fail_rtol * (total_due + tnc);
+  T gross1, gross2;
   sell_pro_rata(b1, c1, b2, c2, total_due, nc1, nc2, nf1, nf2,
-                tnc > kEps && payment > 0.0f, gross1, gross2);
+                tnc > Num<T>::eps && payment > T(0), gross1, gross2);
   profile<kUseReal1>(b1, c1, sc.r1, eff1, nf1, nc1);
   profile<kUseReal2>(b2, c2, sc.r2, eff2, nf2, nc2);
   rebalance_lite(b1, c1, b2, c2, eff1, eff2, a1, false);
@@ -406,26 +557,25 @@ __device__ __forceinline__ bool annual_tax(const Scenario& sc, float& b1,
 // amount x price level; a fixed-nominal stream freezes amount x price level
 // in its slot (initialised to -1) on its first paying month; a capped
 // stream pays while ret_idx < start + duration.
-template <int S>
-__device__ __forceinline__ void stream_income(const Scenario& sc,
-                                              const float* start,
-                                              float* fixed, float ret_idx_f,
-                                              float price0,
-                                              float& net_income) {
+template <int S, class T>
+__device__ __forceinline__ void stream_income(const Scenario<T>& sc,
+                                              const T* start, T* fixed,
+                                              T ret_idx_f, T price0,
+                                              T& net_income) {
   if constexpr (S < kNS) {
     using K = StreamKind<S>;
     bool active = ret_idx_f >= start[S];
     if constexpr (K::capped) active = active && ret_idx_f < start[S] + sc.duration[S];
-    float nominal;
+    T nominal;
     if constexpr (K::indexed) {
       nominal = sc.amount[S] * price0;
     } else {
-      if (active && ret_idx_f == start[S] && fixed[S] < 0.0f)
+      if (active && ret_idx_f == start[S] && fixed[S] < T(0))
         fixed[S] = sc.amount[S] * price0;
       nominal = fixed[S];
     }
-    // __fmul_rn: the rounded income, never fused into the sum below.
-    const float inc = active ? __fmul_rn(nominal, sc.net[S]) : 0.0f;
+    // r_mul_rn: the rounded income, never fused into the sum below.
+    const T inc = active ? r_mul_rn(nominal, sc.net[S]) : T(0);
     net_income = S == 0 ? inc : net_income + inc;
     stream_income<S + 1>(sc, start, fixed, ret_idx_f, price0, net_income);
   }
@@ -435,91 +585,91 @@ __device__ __forceinline__ void stream_income(const Scenario& sc,
 // The month steps (pallas_kernel.py:718-1171), shared by every kernel
 // ---------------------------------------------------------------------------
 // One path's carry. The tracked fields (ytr .. infl_ret) live only in the
-// full kernel; elsewhere they are never read and compile out.
+// full kernels; elsewhere they are never read and compile out.
+template <class T>
 struct Carry {
-  float b1, c1, b2, c2, infl, alive_f;
-  float g1a, g2a;  // period market gains (annual bills)
-  bool preret;     // a bill failed before retirement
-  float smult;     // guardrails' spending multiplier
-  float stream_start[kSlots], fixed[kSlots];
-  float d_mort, glide_scale;
-  float ytr, yg, yr, fyg, fyr, start, infl_ret;
+  T b1, c1, b2, c2, infl, alive_f;
+  T g1a, g2a;    // period market gains (annual bills)
+  bool preret;   // a bill failed before retirement
+  T smult;       // guardrails' spending multiplier
+  T stream_start[kSlots], fixed[kSlots];
+  T d_mort, glide_scale;
+  T ytr, yg, yr, fyg, fyr, start, infl_ret;
 };
 
-// The full kernel's year-end records: (L, n) trajectory and price series and
+// The full kernels' year-end records: (L, n) trajectory and price series and
 // the (R, n) withdrawal-rate series of path p.
+template <class T>
 struct Records {
-  float* traj;
-  float* price;
-  float* wr;
+  T* traj;
+  T* price;
+  T* wr;
   int n, p, R, L, full_wy, partial_wy;
 };
 
-__device__ __forceinline__ Carry start_path(const Scenario& sc, int w,
-                                            const PathKey& key) {
-  Carry c;
-  const float wf = static_cast<float>(w);
+// Path = PathKey (Philox) or ScanPath<T> (threefry): its longevity draw.
+template <class T, class Path>
+__device__ __forceinline__ Carry<T> start_path(const Scenario<T>& sc, int w,
+                                               const Path& key) {
+  Carry<T> c;
+  const T wf = static_cast<T>(w);
 #pragma unroll
   for (int s = 0; s < kNS; ++s) {
     c.stream_start[s] =
-        fmaxf(0.0f, ceilf(fmaxf(0.0f, sc.from_t0[s] - wf) - kEps));
-    c.fixed[s] = -1.0f;
+        r_max(T(0), r_ceil(r_max(T(0), sc.from_t0[s] - wf) - Num<T>::eps));
+    c.fixed[s] = T(-1);
   }
-  // Longevity (pallas_kernel.py:530-556): one uniform per path from the
-  // salted key -> remaining months at this row's own retirement date.
-  c.d_mort = 0.0f;
+  // Longevity: one uniform per path -> remaining months at this row's own
+  // retirement date.
+  c.d_mort = T(0);
   if constexpr (kMortality) {
-    float u = mcrt::bits_to_uniform(
-        mcrt::mortality_word(key.seed, key.block, key.lane));
-    if constexpr (kAntithetic) {
-      if (key.sign < 0.0f) u = 1.0f - u;
-    }
-    c.d_mort = gompertz_remaining_months(u, sc.mort_g0, sc.mort_b12,
-                                         sc.mort_cap, wf);
+    c.d_mort = gompertz_remaining_months(static_cast<T>(mortality_uniform(key)),
+                                         sc.mort_g0, sc.mort_b12, sc.mort_cap,
+                                         wf);
   }
   // Glide (pallas_kernel.py:559-566): the target moves linearly to alloc1_f
   // over the W working months; retirement holds alloc1_f.
-  c.glide_scale = 0.0f;
-  if constexpr (kGlide) c.glide_scale = (sc.alloc1_f - sc.alloc1) / fmaxf(wf, 1.0f);
+  c.glide_scale = T(0);
+  if constexpr (kGlide) c.glide_scale = (sc.alloc1_f - sc.alloc1) / r_max(wf, T(1));
 
   c.b1 = sc.init_bal * sc.alloc1;
   c.b2 = sc.init_bal - c.b1;
   c.c1 = c.b1;
   c.c2 = c.b2;
-  c.infl = 1.0f;
-  c.alive_f = 1.0f;
-  c.g1a = 0.0f;
-  c.g2a = 0.0f;
+  c.infl = T(1);
+  c.alive_f = T(1);
+  c.g1a = T(0);
+  c.g2a = T(0);
   c.preret = false;
-  c.smult = 1.0f;
-  c.ytr = c.yg = c.yr = c.fyg = c.fyr = 0.0f;
-  c.start = 0.0f;
-  c.infl_ret = 1.0f;
+  c.smult = T(1);
+  c.ytr = c.yg = c.yr = c.fyg = c.fyr = T(0);
+  c.start = T(0);
+  c.infl_ret = T(1);
   return c;
 }
 
 // Accumulation month m (1..W): no deaths, no masks.
-__device__ __forceinline__ void accum_month(const Scenario& sc, Carry& c,
-                                            int m, float g1, float gi,
-                                            float g2) {
+template <class T>
+__device__ __forceinline__ void accum_month(const Scenario<T>& sc, Carry<T>& c,
+                                            int m, T g1, T gi, T g2) {
   if constexpr (kBills) {
-    c.g1a += c.b1 * (g1 - 1.0f);
-    c.g2a += c.b2 * (g2 - 1.0f);
+    c.g1a += c.b1 * (g1 - T(1));
+    c.g2a += c.b2 * (g2 - T(1));
   }
   c.b1 *= g1;
   c.b2 *= g2;
   c.infl *= gi;
-  const float contrib =
-      sc.contrib0 * expf(sc.log1p_growth * static_cast<float>((m - 1) / kMonths));
-  float al = sc.alloc1;
-  if constexpr (kGlide) al = sc.alloc1 + c.glide_scale * static_cast<float>(m);
-  const float ca1 = contrib * al;
-  const float ca2 = contrib - ca1;
+  const T contrib =
+      sc.contrib0 * r_exp(sc.log1p_growth * static_cast<T>((m - 1) / kMonths));
+  T al = sc.alloc1;
+  if constexpr (kGlide) al = sc.alloc1 + c.glide_scale * static_cast<T>(m);
+  const T ca1 = contrib * al;
+  const T ca2 = contrib - ca1;
   c.b1 += ca1;
   c.c1 += ca1;
   c.b2 += ca2;
   c.c2 += ca2;
-  float eff1, nf1, nc1, eff2, nf2, nc2;
+  T eff1, nf1, nc1, eff2, nf2, nc2;
   profile<kUseReal1>(c.b1, c.c1, sc.r1, eff1, nf1, nc1);
   profile<kUseReal2>(c.b2, c.c2, sc.r2, eff2, nf2, nc2);
   rebalance_lite(c.b1, c.c1, c.b2, c.c2, eff1, eff2, al, false);
@@ -527,69 +677,71 @@ __device__ __forceinline__ void accum_month(const Scenario& sc, Carry& c,
     if (m % kMonths == 0) {  // absolute year boundary (pallas :802-819)
       if (annual_tax(sc, c.b1, c.c1, c.b2, c.c2, c.g1a, c.g2a, al))
         c.preret = true;
-      c.g1a = 0.0f;
-      c.g2a = 0.0f;
+      c.g1a = T(0);
+      c.g2a = T(0);
     }
   }
 }
 
 // The retirement snapshot: a bill that failed before retirement kills the
 // path at its own W (pallas :839-841).
-__device__ __forceinline__ void snapshot(Carry& c) {
+template <class T>
+__device__ __forceinline__ void snapshot(Carry<T>& c) {
   if constexpr (kBills) {
-    if (c.preret) c.alive_f = 0.0f;
+    if (c.preret) c.alive_f = T(0);
   }
 }
 
 // Retirement month m (W+1..t_end). TRACK adds the full-mode records,
 // stored straight to the (L, n) / (R, n) series at year ends.
-template <bool TRACK>
-__device__ __forceinline__ void retire_month(const Scenario& sc, Carry& c,
+template <bool TRACK, class T>
+__device__ __forceinline__ void retire_month(const Scenario<T>& sc, Carry<T>& c,
                                              int m, int w, int t_end,
-                                             float g1, float gi, float g2,
-                                             const Records& rec) {
-  const bool alive = c.alive_f > 0.5f;
-  const float alive0_f = c.alive_f;
+                                             T g1, T gi, T g2,
+                                             const Records<T>& rec) {
+  constexpr T kEps = Num<T>::eps;
+  const bool alive = c.alive_f > T(0.5);
+  const T alive0_f = c.alive_f;
   const int k = m - w;
   const int ret_idx = k - 1;
-  const float ret_idx_f = static_cast<float>(ret_idx);
+  const T ret_idx_f = static_cast<T>(ret_idx);
   if (TRACK && k % kMonths == 1) {
-    c.yg = 0.0f;
-    c.yr = 0.0f;
+    c.yg = T(0);
+    c.yr = T(0);
   }
 
   // income waterfall & net spending need
-  const float price0 = c.infl;
-  float expenses = sc.expenses;
+  const T price0 = c.infl;
+  T expenses = sc.expenses;
   if constexpr (kGuardrails) {  // pallas :887-912
     // Year starts (years 1+) of a living path only; the predicate on
     // ret_idx is uniform across the warp (one row per warp).
     if (ret_idx % kMonths == 0 && ret_idx > 0 && alive) {
-      const float planned = 12.0f * sc.expenses * c.smult * price0;
-      const float wr_now = planned / fmaxf(c.b1 + c.b2, kEps);
-      float s_new = wr_now > sc.gr_up ? c.smult * (1.0f - sc.gr_adj) : c.smult;
-      s_new = wr_now < sc.gr_lo ? c.smult * (1.0f + sc.gr_adj) : s_new;
-      c.smult = fminf(fmaxf(s_new, sc.gr_floor), sc.gr_cap);
+      const T planned = T(12) * sc.expenses * c.smult * price0;
+      const T wr_now = planned / r_max(c.b1 + c.b2, kEps);
+      T s_new = wr_now > sc.gr_up ? c.smult * (T(1) - sc.gr_adj) : c.smult;
+      s_new = wr_now < sc.gr_lo ? c.smult * (T(1) + sc.gr_adj) : s_new;
+      c.smult = r_min(r_max(s_new, sc.gr_floor), sc.gr_cap);
     }
     expenses = sc.expenses * c.smult;
   }
-  float need = expenses * price0;
+  T need = expenses * price0;
   if constexpr (kNS > 0) {
-    float net_income = 0.0f;
+    T net_income = T(0);
     stream_income<0>(sc, c.stream_start, c.fixed, ret_idx_f, price0,
                      net_income);
     // The rounded income from the rounded expenses, as the JAX loop takes
-    // it (__fsub_rn is never contracted): income that covers the expenses
+    // it (r_sub_rn is never contracted): income that covers the expenses
     // exactly leaves a need of exactly 0, so a path with no balance lives
     // on. nvcc's fmaf(expenses, price0, -income) left the product's
     // round-off, up to half an ulp of expenses x price (> kEps), and ruined
     // every such path (the edge sweep's zero-balance, pension-funded case).
-    need = fmaxf(0.0f, __fsub_rn(need, net_income));
+    need = r_max(T(0), r_sub_rn(need, net_income));
   }
   bool living = true;
   if constexpr (kMortality) {  // spending ends with the owner (:942-948)
     living = ret_idx_f < c.d_mort;
-    if (!living) need = 0.0f;
+    if (!living) need = T(0);
   }
 
   // ruin check A, then growth (dead/ruined paths freeze)
@@ -597,8 +749,8 @@ __device__ __forceinline__ void retire_month(const Scenario& sc, Carry& c,
   const bool gmask = alive && !dies_a;
   if (gmask) {
     if constexpr (kBills) {
-      c.g1a += c.b1 * (g1 - 1.0f);
-      c.g2a += c.b2 * (g2 - 1.0f);
+      c.g1a += c.b1 * (g1 - T(1));
+      c.g2a += c.b2 * (g2 - T(1));
     }
     c.b1 *= g1;
     c.b2 *= g2;
@@ -607,21 +759,21 @@ __device__ __forceinline__ void retire_month(const Scenario& sc, Carry& c,
 
   // ruin check B, then the capacity-limited withdrawal split pro-rata by
   // net capacity: one sale fraction for both assets
-  const float total1 = c.b1 + c.b2;
+  const T total1 = c.b1 + c.b2;
   const bool dies_b = gmask && (total1 <= kEps) && (need > kEps);
   const bool wmask = gmask && !dies_b;
-  float eff1, nf1, nc1, eff2, nf2, nc2;
+  T eff1, nf1, nc1, eff2, nf2, nc2;
   profile<kUseReal1>(c.b1, c.c1, sc.r1, eff1, nf1, nc1);
   profile<kUseReal2>(c.b2, c.c2, sc.r2, eff2, nf2, nc2);
-  const float ftol = kEps + kFailRtol * (need + total1);
-  float gross1, gross2;
-  const float nw = sell_pro_rata(c.b1, c.c1, c.b2, c.c2, need, nc1, nc2, nf1,
-                                 nf2, wmask, gross1, gross2);
+  const T ftol = kEps + Num<T>::fail_rtol * (need + total1);
+  T gross1, gross2;
+  const T nw = sell_pro_rata(c.b1, c.c1, c.b2, c.c2, need, nc1, nc2, nf1,
+                             nf2, wmask, gross1, gross2);
   const bool fail_net = wmask && (need > kEps) && (nw < need - ftol);
   if (TRACK) {
-    const float gw = gross1 + gross2;
+    const T gw = gross1 + gross2;
     c.yg += gw;
-    c.yr += gw / fmaxf(price0, kEps);
+    c.yr += gw / r_max(price0, kEps);
   }
 
   // monthly rebalance (the proportional sale left the profiles valid)
@@ -641,20 +793,20 @@ __device__ __forceinline__ void retire_month(const Scenario& sc, Carry& c,
         const bool tfail =
             annual_tax(sc, c.b1, c.c1, c.b2, c.c2, c.g1a, c.g2a, sc.alloc1_f);
         if (is_boundary) {
-          c.g1a = 0.0f;
-          c.g2a = 0.0f;
+          c.g1a = T(0);
+          c.g2a = T(0);
         }
         dies = dies_pre || tfail;
         dies_regular = dies && !(is_settle && tfail);
       }
     }
   }
-  if (dies) c.alive_f = 0.0f;
+  if (dies) c.alive_f = T(0);
   if (TRACK) {
     const int n = rec.n, p = rec.p;
     c.ytr += alive0_f;  // alive-months counter
     if (k <= kMonths) {  // first retirement year: capture at death / year end
-      const bool cap_fy = (alive0_f > 0.5f) && (dies_regular || k % kMonths == 0);
+      const bool cap_fy = (alive0_f > T(0.5)) && (dies_regular || k % kMonths == 0);
       if (cap_fy) {
         c.fyg = c.yg;
         c.fyr = c.yr * c.infl_ret;
@@ -665,35 +817,34 @@ __device__ __forceinline__ void retire_month(const Scenario& sc, Carry& c,
           rec.full_wy + rec.partial_wy + (k + kMonths - 1) / kMonths, rec.L - 1));
       const size_t yslot =
           static_cast<size_t>(min(max(k / kMonths - 1, 0), rec.R - 1));
-      const float total2 = c.b1 + c.b2;
+      const T total2 = c.b1 + c.b2;
       const bool died_this_year =
-          (c.ytr > static_cast<float>((k / kMonths - 1) * kMonths) + 0.5f) &&
-          (c.ytr < static_cast<float>(k) + 0.5f);
-      const bool alive_now = c.alive_f > 0.5f;
+          (c.ytr > static_cast<T>((k / kMonths - 1) * kMonths) + T(0.5)) &&
+          (c.ytr < static_cast<T>(k) + T(0.5));
+      const bool alive_now = c.alive_f > T(0.5);
       if (alive_now || died_this_year)
-        rec.traj[slot * n + p] = alive_now ? total2 : fmaxf(0.0f, total2);
+        rec.traj[slot * n + p] = alive_now ? total2 : r_max(T(0), total2);
       rec.price[slot * n + p] = c.infl;
       // withdrawal-rate observations only for fully-lived years
-      if ((alive0_f > 0.5f) && !dies_regular && living)
+      if ((alive0_f > T(0.5)) && !dies_regular && living)
         rec.wr[yslot * n + p] = c.start > kEps
-            ? c.yr * c.infl_ret / fmaxf(c.start, kEps) * 100.0f : 0.0f;
+            ? c.yr * c.infl_ret / r_max(c.start, kEps) * T(100) : T(0);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// probe_kernel / grid_kernel: the tiled month loop
+// The tiled month loop (probe_kernel, grid_kernel, scan_rows_kernel)
 // ---------------------------------------------------------------------------
 // One path-month's growth factors from the draw tile (t: this lane's entry
 // of the month): the probe's tile holds them; a grid row applies its own
 // parameters to the tile's normals.
-template <bool GRID>
-__device__ __forceinline__ void tile_growth(const Scenario& sc,
-                                            const float* t, float& g1,
-                                            float& gi, float& g2) {
+template <bool GRID, class T>
+__device__ __forceinline__ void tile_growth(const Scenario<T>& sc, const T* t,
+                                            T& g1, T& gi, T& g2) {
   constexpr int P = kWarp;
   if constexpr (GRID) {
-    Shock s;
+    Shock<T> s;
     s.z_eq = t[0];
     s.z_ind = t[P];
     s.z_prem = t[2 * P];
@@ -711,22 +862,23 @@ __device__ __forceinline__ void tile_growth(const Scenario& sc,
 
 // Block (bx, by) holds rows by*C .. by*C+C-1 and paths bx*32 .. bx*32+31;
 // warp v of the block serves row by*C + v (cuda_kernel.TilePlan.cell mirrors
-// this). Dynamic shared memory: the draw tile [M][FIELDS][32] floats, then
-// the block's largest t_end. A warp beyond
-// the last row reads the last row's parameters, runs no month and writes
-// nothing.
-template <bool GRID>
+// this). Dynamic shared memory: the draw tile [M][FIELDS][32] of T, then
+// the block's largest t_end. A warp beyond the last row reads the last
+// row's parameters, runs no month and writes nothing. ``paths`` gives each
+// path its draws; a row accumulates months 1..min(W, acc_cap) (the scan's
+// cap; the Philox kernels have none) and retires months W+1..t_end.
+template <bool GRID, class T, class Paths>
 __device__ __forceinline__ void tile_body(
-    const float* __restrict__ fp, const int* __restrict__ ip, int n_rows,
-    int n, int rows_per_block, int months_per_chunk,
-    float* __restrict__ success, float* __restrict__ final_bal,
+    const T* __restrict__ fp, const int* __restrict__ ip, int n_rows,
+    int n, int rows_per_block, int months_per_chunk, const Paths& paths,
+    int acc_cap, T* __restrict__ success, T* __restrict__ final_bal,
     int* __restrict__ counts) {
   constexpr int FIELDS = GRID ? kGridFields : kProbeFields;
   constexpr int P = kWarp;  // paths per block
-  extern __shared__ float smem[];
+  extern __shared__ __align__(8) unsigned char smem_raw[];
   const int M = months_per_chunk;
-  float* tile = smem;
-  int* block_t_end = reinterpret_cast<int*>(smem + M * FIELDS * P);
+  T* tile = reinterpret_cast<T*>(smem_raw);
+  int* block_t_end = reinterpret_cast<int*>(tile + M * FIELDS * P);
 
   const int row_in_block = threadIdx.x / kWarp;
   const int j = threadIdx.x % kWarp;
@@ -738,12 +890,9 @@ __device__ __forceinline__ void tile_body(
 
   const int* irow = ip + my_row * NUM_IPARAMS;
   const int w = irow[I_W];
+  const int w_acc = kThreefry ? min(w, acc_cap) : w;
   const int t_end = has_row ? irow[I_T_END] : 0;
-  const uint32_t seed = static_cast<uint32_t>(ip[I_SEED]);
-  const uint32_t gblock =
-      static_cast<uint32_t>(p0 / kBlockPaths + ip[I_BLOCK_OFF]);
-  const PathKey key =
-      path_key(seed, gblock, static_cast<uint32_t>(p % kBlockPaths));
+  const auto key = paths.path(p);
 
   if (threadIdx.x == 0) *block_t_end = 0;
   __syncthreads();
@@ -751,16 +900,16 @@ __device__ __forceinline__ void tile_body(
   __syncthreads();
   const int t_max = *block_t_end;
 
-  const Scenario sc(GRID ? fp + static_cast<size_t>(my_row) * kRow : fp);
-  Carry c = start_path(sc, w, key);
+  const Scenario<T> sc(GRID ? fp + static_cast<size_t>(my_row) * kRow : fp);
+  Carry<T> c = start_path(sc, w, key);
 
   for (int m0 = 1; m0 <= t_max; m0 += M) {
     const int mc = min(M, t_max - m0 + 1);
     // Draw phase: every warp of the block, each path-month once (warp v
     // draws months v, v + C, ... of the chunk for its 32 paths).
     for (int mm = row_in_block; mm < mc; mm += rows_per_block) {
-      const Shock s = month_shock(m0 + mm, key);
-      float* t = tile + mm * FIELDS * P + j;
+      const Shock<T> s = month_shock(m0 + mm, key);
+      T* t = tile + mm * FIELDS * P + j;
       if constexpr (GRID) {
         t[0] = s.z_eq;
         t[P] = s.z_ind;
@@ -770,7 +919,7 @@ __device__ __forceinline__ void tile_body(
           t[4 * P] = s.z_j;
         }
       } else {
-        float g1, gi, g2;
+        T g1, gi, g2;
         growth(sc, s, g1, gi, g2);  // the probe's rows share sc
         t[0] = g1;
         t[P] = gi;
@@ -781,15 +930,15 @@ __device__ __forceinline__ void tile_body(
     // Body phase: each warp runs its row's months of the chunk, its
     // accumulation months, the snapshot, then its retirement months.
     const int m_last = min(m0 + mc - 1, t_end);
-    float g1, gi, g2;
-    for (int m = m0; m <= min(m_last, w); ++m) {
+    T g1, gi, g2;
+    for (int m = m0; m <= min(m_last, w_acc); ++m) {
       tile_growth<GRID>(sc, tile + (m - m0) * FIELDS * P + j, g1, gi, g2);
       accum_month(sc, c, m, g1, gi, g2);
     }
     if (m0 <= w + 1 && w + 1 <= m_last) snapshot(c);
     for (int m = max(m0, w + 1); m <= m_last; ++m) {
       tile_growth<GRID>(sc, tile + (m - m0) * FIELDS * P + j, g1, gi, g2);
-      retire_month<false>(sc, c, m, w, t_end, g1, gi, g2, Records{});
+      retire_month<false>(sc, c, m, w, t_end, g1, gi, g2, Records<T>{});
     }
     __syncthreads();  // the tile is read before the next chunk's draws
   }
@@ -799,8 +948,8 @@ __device__ __forceinline__ void tile_body(
   if (has_row && p < n) {
     const size_t idx = static_cast<size_t>(row) * n + p;
     success[idx] = c.alive_f;
-    final_bal[idx] = fmaxf(0.0f, c.b1 + c.b2);
-    alive_i = c.alive_f > 0.5f;
+    final_bal[idx] = r_max(T(0), c.b1 + c.b2);
+    alive_i = c.alive_f > T(0.5);
   }
   // Survivors: one ballot per warp (= per row of the block), one atomic per
   // (block, row); padding lanes and rowless warps vote 0.
@@ -808,56 +957,35 @@ __device__ __forceinline__ void tile_body(
   if (j == 0 && has_row) atomicAdd(counts + row, __popc(ballot));
 }
 
-// Candidates share one parameter block (fp: F.NUM + 5*S floats).
-__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
-    probe_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
-                 int n_rows, int n, int rows_per_block, int months_per_chunk,
-                 float* __restrict__ success, float* __restrict__ final_bal,
-                 int* __restrict__ counts) {
-  tile_body<false>(fp, ip, n_rows, n, rows_per_block, months_per_chunk,
-                   success, final_bal, counts);
-}
-
-// One parameter row per scenario (fp: K rows of F.NUM + 5*S floats).
-__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
-    grid_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
-                int n_rows, int n, int rows_per_block, int months_per_chunk,
-                float* __restrict__ success, float* __restrict__ final_bal,
-                int* __restrict__ counts) {
-  tile_body<true>(fp, ip, n_rows, n, rows_per_block, months_per_chunk,
-                  success, final_bal, counts);
-}
-
 // ---------------------------------------------------------------------------
-// full_kernel: one thread per path, draws in-thread
+// The tracked month loop (full_kernel, scan_full_kernel): one thread per
+// path, draws in-thread; months 1..min(W, acc_cap) accumulate
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kFullThreads)
-    full_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
-                int n, int R, int L, float* __restrict__ vecs,
-                float* __restrict__ traj, float* __restrict__ price,
-                float* __restrict__ wr) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const Scenario sc(fp);
+template <class T, class Path>
+__device__ __forceinline__ void full_body(const T* __restrict__ fp,
+                                          const int* __restrict__ ip, int n,
+                                          int R, int L, int p, const Path& key,
+                                          int acc_cap, T* __restrict__ vecs,
+                                          T* __restrict__ traj,
+                                          T* __restrict__ price,
+                                          T* __restrict__ wr) {
+  const Scenario<T> sc(fp);
   const int w = ip[I_W], t_end = ip[I_T_END];
-  const PathKey key = path_key(
-      static_cast<uint32_t>(ip[I_SEED]),
-      static_cast<uint32_t>(p / kBlockPaths + ip[I_BLOCK_OFF]),
-      static_cast<uint32_t>(p % kBlockPaths));
-  const Records rec{traj, price, wr, n, p, R, L, w / kMonths,
-                    (w % kMonths) != 0};
-  Carry c = start_path(sc, w, key);
+  const int w_acc = kThreefry ? min(w, acc_cap) : w;
+  const Records<T> rec{traj, price, wr, n, p, R, L, w / kMonths,
+                       (w % kMonths) != 0};
+  Carry<T> c = start_path(sc, w, key);
 
   traj[p] = sc.init_bal;
-  price[p] = 1.0f;
+  price[p] = T(1);
   for (int j = 1; j < L; ++j) {
-    traj[static_cast<size_t>(j) * n + p] = 0.0f;
-    price[static_cast<size_t>(j) * n + p] = 1.0f;
+    traj[static_cast<size_t>(j) * n + p] = T(0);
+    price[static_cast<size_t>(j) * n + p] = T(1);
   }
-  for (int y = 0; y < R; ++y) wr[static_cast<size_t>(y) * n + p] = __int_as_float(0x7fc00000);
+  for (int y = 0; y < R; ++y) wr[static_cast<size_t>(y) * n + p] = r_nan<T>();
 
-  float g1, gi, g2;
-  for (int m = 1; m <= w; ++m) {
+  T g1, gi, g2;
+  for (int m = 1; m <= w_acc; ++m) {
     growth(sc, month_shock(m, key), g1, gi, g2);
     accum_month(sc, c, m, g1, gi, g2);
     if (m % kMonths == 0) {
@@ -881,39 +1009,116 @@ __global__ void __launch_bounds__(kFullThreads)
 
   // vecs rows: success, final, start, ytr, fy_g, fy_r, infl_ret
   vecs[p] = c.alive_f;
-  vecs[static_cast<size_t>(n) + p] = fmaxf(0.0f, c.b1 + c.b2);
+  vecs[static_cast<size_t>(n) + p] = r_max(T(0), c.b1 + c.b2);
   vecs[2 * static_cast<size_t>(n) + p] = c.start;
   vecs[3 * static_cast<size_t>(n) + p] =
-      c.alive_f > 0.5f ? __int_as_float(0x7fc00000)
-                       : c.ytr / static_cast<float>(kMonths);
+      c.alive_f > T(0.5) ? r_nan<T>() : c.ytr / static_cast<T>(kMonths);
   vecs[4 * static_cast<size_t>(n) + p] = c.fyg;
   vecs[5 * static_cast<size_t>(n) + p] = c.fyr;
   vecs[6 * static_cast<size_t>(n) + p] = c.infl_ret;
 }
 
+#if !MCRT_THREEFRY
+// ---------------------------------------------------------------------------
+// The Philox kernels (float32)
+// ---------------------------------------------------------------------------
+// Candidates share one parameter block (fp: F.NUM + 5*S floats).
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+    probe_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
+                 int n_rows, int n, int rows_per_block, int months_per_chunk,
+                 float* __restrict__ success, float* __restrict__ final_bal,
+                 int* __restrict__ counts) {
+  const PhiloxPaths paths{static_cast<uint32_t>(ip[I_SEED]), ip[I_BLOCK_OFF]};
+  tile_body<false>(fp, ip, n_rows, n, rows_per_block, months_per_chunk, paths,
+                   0, success, final_bal, counts);
+}
+
+// One parameter row per scenario (fp: K rows of F.NUM + 5*S floats).
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+    grid_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
+                int n_rows, int n, int rows_per_block, int months_per_chunk,
+                float* __restrict__ success, float* __restrict__ final_bal,
+                int* __restrict__ counts) {
+  const PhiloxPaths paths{static_cast<uint32_t>(ip[I_SEED]), ip[I_BLOCK_OFF]};
+  tile_body<true>(fp, ip, n_rows, n, rows_per_block, months_per_chunk, paths,
+                  0, success, final_bal, counts);
+}
+
+__global__ void __launch_bounds__(kFullThreads)
+    full_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
+                int n, int R, int L, float* __restrict__ vecs,
+                float* __restrict__ traj, float* __restrict__ price,
+                float* __restrict__ wr) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const PhiloxPaths paths{static_cast<uint32_t>(ip[I_SEED]), ip[I_BLOCK_OFF]};
+  full_body(fp, ip, n, R, L, p, paths.path(p), 0, vecs, traj, price, wr);
+}
+#else
+// ---------------------------------------------------------------------------
+// The scan kernels (Real: float32 or float64), on the JAX scan's draws
+// ---------------------------------------------------------------------------
+// K rows x n paths; SHARED: one parameter block for every row (the probe
+// form), else one per row (the batch form). keys: the (T + 1, 6) key table.
+template <bool SHARED>
+__global__ void __launch_bounds__(kTileThreads, kScanTileBlocks)
+    scan_rows_kernel(const Real* __restrict__ fp, const int* __restrict__ ip,
+                     const uint32_t* __restrict__ keys, int n_rows, int n,
+                     int rows_per_block, int months_per_chunk, int acc_cap,
+                     long long row_offset, Real* __restrict__ success,
+                     Real* __restrict__ final_bal, int* __restrict__ counts) {
+  const ScanPaths<Real> paths{keys, row_offset};
+  tile_body<!SHARED>(fp, ip, n_rows, n, rows_per_block, months_per_chunk,
+                     paths, acc_cap, success, final_bal, counts);
+}
+
+__global__ void __launch_bounds__(kFullThreads)
+    scan_full_kernel(const Real* __restrict__ fp, const int* __restrict__ ip,
+                     const uint32_t* __restrict__ keys, int n, int R, int L,
+                     int acc_cap, long long row_offset,
+                     Real* __restrict__ vecs, Real* __restrict__ traj,
+                     Real* __restrict__ price, Real* __restrict__ wr) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const ScanPaths<Real> paths{keys, row_offset};
+  full_body(fp, ip, n, R, L, p, paths.path(p), acc_cap, vecs, traj, price, wr);
+}
+#endif
+
 // A tiled launch as engine/cuda_kernel.py's tile_plan describes it, checked
 // against the kernel's own limits and the shared-memory formula.
+inline bool tile_plan_ok(int n_rows, int n_paths, int n_streams,
+                         int rows_per_block, int months_per_chunk, int fields,
+                         int want_fields, int smem_bytes, int elem_bytes) {
+  const long long want_smem =
+      static_cast<long long>(elem_bytes) * months_per_chunk * fields * kWarp + 4;
+  return n_rows >= 1 && n_paths >= 1 && n_streams == kNS &&
+         rows_per_block >= 1 && rows_per_block * kWarp <= kTileThreads &&
+         months_per_chunk >= 1 && fields == want_fields &&
+         smem_bytes == want_smem && smem_bytes <= kMaxSmem &&
+         (n_rows + rows_per_block - 1) / rows_per_block <= 65535;
+}
+
+template <class Kernel>
+int set_smem(Kernel kernel, int smem_bytes) {
+  if (smem_bytes <= kDefaultSmem) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
+}
+
+#if !MCRT_THREEFRY
 template <bool GRID>
 int launch_tiles(const void* fp, const void* ip, int n_rows, int n_paths,
                  int n_streams, int rows_per_block, int months_per_chunk,
                  int fields, int smem_bytes, void* success, void* final_bal,
                  void* counts, void* stream) {
-  const int want_fields = GRID ? kGridFields : kProbeFields;
-  const long long want_smem =
-      4LL * (static_cast<long long>(months_per_chunk) * fields * kWarp + 1);
-  if (n_rows < 1 || n_paths < 1 || n_streams != kNS || rows_per_block < 1 ||
-      rows_per_block * kWarp > kTileThreads || months_per_chunk < 1 ||
-      fields != want_fields || smem_bytes != want_smem ||
-      smem_bytes > kMaxSmem ||
-      (n_rows + rows_per_block - 1) / rows_per_block > 65535)
+  if (!tile_plan_ok(n_rows, n_paths, n_streams, rows_per_block,
+                    months_per_chunk, fields,
+                    GRID ? kGridFields : kProbeFields, smem_bytes, 4))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();  // clear any earlier, unrelated error
   auto* kernel = GRID ? grid_kernel : probe_kernel;
-  if (smem_bytes > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  if (const int err = set_smem(kernel, smem_bytes)) return err;
   const dim3 grid((n_paths + kWarp - 1) / kWarp,
                   (n_rows + rows_per_block - 1) / rows_per_block);
   kernel<<<grid, rows_per_block * kWarp, smem_bytes,
@@ -924,11 +1129,13 @@ int launch_tiles(const void* fp, const void* ip, int n_rows, int n_paths,
       static_cast<int*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
+#endif
 
 }  // namespace
 
 extern "C" {
 
+#if !MCRT_THREEFRY
 int mcrt_probe(const void* fp, const void* ip, int n_cand, int n_paths,
                int n_streams, int rows_per_block, int months_per_chunk,
                int fields, int smem_bytes, void* success, void* final_bal,
@@ -961,6 +1168,53 @@ int mcrt_full(const void* fp, const void* ip, int n_paths,
       static_cast<float*>(wr));
   return static_cast<int>(cudaGetLastError());
 }
+#else
+// elem_bytes: the caller's sizeof(Real), checked against this library's.
+int mcrt_scan_rows(const void* fp, const void* ip, const void* keys,
+                   int n_rows, int n_paths, int n_streams, int shared_params,
+                   int rows_per_block, int months_per_chunk, int fields,
+                   int smem_bytes, int elem_bytes, int acc_cap,
+                   long long row_offset, void* success, void* final_bal,
+                   void* counts, void* stream) {
+  if (elem_bytes != static_cast<int>(sizeof(Real)) || row_offset < 0 ||
+      !tile_plan_ok(n_rows, n_paths, n_streams, rows_per_block,
+                    months_per_chunk, fields,
+                    shared_params ? kProbeFields : kGridFields, smem_bytes,
+                    elem_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaGetLastError();  // clear any earlier, unrelated error
+  auto* kernel = shared_params ? &scan_rows_kernel<true> : &scan_rows_kernel<false>;
+  if (const int err = set_smem(kernel, smem_bytes)) return err;
+  const dim3 grid((n_paths + kWarp - 1) / kWarp,
+                  (n_rows + rows_per_block - 1) / rows_per_block);
+  kernel<<<grid, rows_per_block * kWarp, smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Real*>(fp), static_cast<const int*>(ip),
+      static_cast<const uint32_t*>(keys), n_rows, n_paths, rows_per_block,
+      months_per_chunk, acc_cap, row_offset, static_cast<Real*>(success),
+      static_cast<Real*>(final_bal), static_cast<int*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mcrt_scan_full(const void* fp, const void* ip, const void* keys,
+                   int n_paths, int retirement_years, int traj_len,
+                   int n_streams, int elem_bytes, int acc_cap,
+                   long long row_offset, void* vecs, void* traj, void* price,
+                   void* wr, void* stream) {
+  if (n_paths < 1 || traj_len < 1 || retirement_years < 1 ||
+      n_streams != kNS || elem_bytes != static_cast<int>(sizeof(Real)) ||
+      row_offset < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaGetLastError();
+  scan_full_kernel<<<(n_paths + kFullThreads - 1) / kFullThreads,
+                     kFullThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Real*>(fp), static_cast<const int*>(ip),
+      static_cast<const uint32_t*>(keys), n_paths, retirement_years, traj_len,
+      acc_cap, row_offset, static_cast<Real*>(vecs), static_cast<Real*>(traj),
+      static_cast<Real*>(price), static_cast<Real*>(wr));
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
 
 const char* mcrt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,6 +1,8 @@
 // The port's draws computed on the card, for checks only: holds the device
-// stream (philox.cuh, what the month-loop kernels draw) bit-equal to the
-// torch one (ops/shocks.py). One thread per (seed, block, month, lane).
+// streams bit-equal to the torch ones: Philox (philox.cuh, what the Philox
+// kernels draw; ops/shocks.py), one thread per (seed, block, month, lane),
+// and JAX's threefry (threefry.cuh, what the scan kernels draw;
+// ops/threefry.py), one thread per (key, flat index).
 //
 // Interface: a plain C entry loaded with ctypes; it launches on the given
 // stream, does not synchronise, and returns cudaGetLastError().
@@ -9,6 +11,7 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "threefry.cuh"
 
 namespace {
 
@@ -38,6 +41,24 @@ __global__ void normals_kernel(const uint32_t* __restrict__ in, int n,
   vals[5 * static_cast<size_t>(n) + p] = mcrt::bits_to_uniform(wm);
 }
 
+// in rows: key word 0, key word 1, the flat index's hi and lo words. words
+// rows: y0, y1. f32 / f64 rows: the uniform and the normal in that type.
+__global__ void threefry_kernel(const uint32_t* __restrict__ in, int n,
+                                uint32_t* __restrict__ words,
+                                float* __restrict__ f32,
+                                double* __restrict__ f64) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const uint2 y = mcrt::threefry2x32(in[p], in[n + p], in[2 * n + p],
+                                     in[3 * static_cast<size_t>(n) + p]);
+  words[p] = y.x;
+  words[n + p] = y.y;
+  f32[p] = mcrt::tf_uniform(y, 0.0f);
+  f32[n + p] = mcrt::tf_normal(y, 0.0f);
+  f64[p] = mcrt::tf_uniform(y, 0.0);
+  f64[n + p] = mcrt::tf_normal(y, 0.0);
+}
+
 }  // namespace
 
 extern "C" {
@@ -49,6 +70,17 @@ int mcrt_normals(const void* in, int n, void* words, void* vals, void* stream) {
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(in), n, static_cast<uint32_t*>(words),
       static_cast<float*>(vals));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mcrt_threefry(const void* in, int n, void* words, void* f32, void* f64,
+                  void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaGetLastError();
+  threefry_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), n, static_cast<uint32_t*>(words),
+      static_cast<float*>(f32), static_cast<double*>(f64));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,15 +20,29 @@
 //   count_retire       one retirement month (runtime m, W, t_end)
 //   count_retire_plain one retirement month off every yearly branch
 //   count_retire_track / count_retire_track_plain: the same, full mode
+//
+// In a scan unit (MCRT_THREEFRY; MCRT_REAL_DOUBLE for float64) the draws are
+// the JAX scan's threefry (three hashes and XLA's erfinv per path-month, plus
+// the crash's two with crashes) and every part runs in the unit's scalar
+// type, so the same names price the scan kernels. XLA's erfinv branches on
+// w = -log1p(-u^2) into two bands (float32) or three (float64), and all but
+// a few draws in a thousand take the first: here every normal runs band 0
+// (MCRT_ERFINV_BAND), and
+//
+//   count_normal_band0/1/2  one normal through each band (band 2 in float64)
+//
+// price the colder bands, which bound.py adds at the share of the normals
+// that take them.
 
+#define MCRT_ERFINV_BAND 0
 #include "month_loop.cu"
 
 namespace {
 
-constexpr int kCarryFloats = 19 + 2 * kSlots;
+constexpr int kCarryFloats = 19 + 2 * kSlots;  // values of Real
 
-__device__ __forceinline__ Carry load_carry(const float* __restrict__ v) {
-  Carry c;
+__device__ __forceinline__ Carry<Real> load_carry(const Real* __restrict__ v) {
+  Carry<Real> c;
   c.b1 = v[0];
   c.c1 = v[1];
   c.b2 = v[2];
@@ -37,7 +51,7 @@ __device__ __forceinline__ Carry load_carry(const float* __restrict__ v) {
   c.alive_f = v[5];
   c.g1a = v[6];
   c.g2a = v[7];
-  c.preret = v[8] > 0.5f;
+  c.preret = v[8] > Real(0.5);
   c.smult = v[9];
   c.d_mort = v[10];
   c.glide_scale = v[11];
@@ -56,8 +70,8 @@ __device__ __forceinline__ Carry load_carry(const float* __restrict__ v) {
   return c;
 }
 
-__device__ __forceinline__ void store_carry(float* __restrict__ v,
-                                            const Carry& c) {
+__device__ __forceinline__ void store_carry(Real* __restrict__ v,
+                                            const Carry<Real>& c) {
   v[0] = c.b1;
   v[1] = c.c1;
   v[2] = c.b2;
@@ -66,7 +80,7 @@ __device__ __forceinline__ void store_carry(float* __restrict__ v,
   v[5] = c.alive_f;
   v[6] = c.g1a;
   v[7] = c.g2a;
-  v[8] = c.preret ? 1.0f : 0.0f;
+  v[8] = c.preret ? Real(1) : Real(0);
   v[9] = c.smult;
   v[12] = c.ytr;
   v[13] = c.yg;
@@ -77,27 +91,43 @@ __device__ __forceinline__ void store_carry(float* __restrict__ v,
   for (int s = 0; s < kNS; ++s) v[19 + kSlots + s] = c.fixed[s];
 }
 
+#if MCRT_THREEFRY
+// The scan's path: key table after the four ints, global row ip[3] + thread.
+__device__ __forceinline__ ScanPath<Real> key_at(const int* __restrict__ ip) {
+  return ScanPath<Real>(reinterpret_cast<const uint32_t*>(ip + 4),
+                        static_cast<long long>(ip[3]) + threadIdx.x);
+}
+#else
 __device__ __forceinline__ PathKey key_at(const int* __restrict__ ip) {
   return path_key(static_cast<uint32_t>(ip[1]), static_cast<uint32_t>(ip[2]),
                   static_cast<uint32_t>(ip[3]) + threadIdx.x);
 }
+#endif
 
 // This thread's carry in, and where its carry goes.
-__device__ __forceinline__ const float* carry_in(const float* v) {
+__device__ __forceinline__ const Real* carry_in(const Real* v) {
   return v + threadIdx.x * kCarryFloats;
 }
-__device__ __forceinline__ float* carry_out(float* v) {
+__device__ __forceinline__ Real* carry_out(Real* v) {
   return v + (blockDim.x + threadIdx.x) * kCarryFloats;
 }
 
+#if MCRT_THREEFRY
+template <int B>
+__device__ __forceinline__ void normal_band(const uint2* __restrict__ y,
+                                            Real* __restrict__ out) {
+  out[threadIdx.x] = mcrt::tf_normal<B>(y[threadIdx.x], Real(0));
+}
+#endif
+
 template <bool TRACK>
-__device__ __forceinline__ void one_retire(const float* __restrict__ fp,
-                                           const float* __restrict__ g,
+__device__ __forceinline__ void one_retire(const Real* __restrict__ fp,
+                                           const Real* __restrict__ g,
                                            int m, int w, int t_end,
-                                           const Records& rec,
-                                           float* __restrict__ v) {
-  const Scenario sc(fp);
-  Carry c = load_carry(carry_in(v));
+                                           const Records<Real>& rec,
+                                           Real* __restrict__ v) {
+  const Scenario<Real> sc(fp);
+  Carry<Real> c = load_carry(carry_in(v));
   g += 3 * threadIdx.x;
   retire_month<TRACK>(sc, c, m, w, t_end, g[0], g[1], g[2], rec);
   store_carry(carry_out(v), c);
@@ -107,11 +137,11 @@ __device__ __forceinline__ void one_retire(const float* __restrict__ fp,
 
 extern "C" {
 
-__global__ void count_draw_probe(const float* __restrict__ fp,
+__global__ void count_draw_probe(const Real* __restrict__ fp,
                                  const int* __restrict__ ip,
-                                 float* __restrict__ out) {
-  const Scenario sc(fp);
-  float g1, gi, g2;
+                                 Real* __restrict__ out) {
+  const Scenario<Real> sc(fp);
+  Real g1, gi, g2;
   growth(sc, month_shock(ip[0], key_at(ip)), g1, gi, g2);
   out += 3 * threadIdx.x;
   out[0] = g1;
@@ -120,8 +150,8 @@ __global__ void count_draw_probe(const float* __restrict__ fp,
 }
 
 __global__ void count_draw_grid(const int* __restrict__ ip,
-                                float* __restrict__ out) {
-  const Shock s = month_shock(ip[0], key_at(ip));
+                                Real* __restrict__ out) {
+  const Shock<Real> s = month_shock(ip[0], key_at(ip));
   out += 5 * threadIdx.x;
   out[0] = s.z_eq;
   out[1] = s.z_ind;
@@ -132,80 +162,99 @@ __global__ void count_draw_grid(const int* __restrict__ ip,
   }
 }
 
-__global__ void count_growth(const float* __restrict__ fp,
-                             const float* __restrict__ z,
-                             float* __restrict__ out) {
-  const Scenario sc(fp);
+__global__ void count_growth(const Real* __restrict__ fp,
+                             const Real* __restrict__ z,
+                             Real* __restrict__ out) {
+  const Scenario<Real> sc(fp);
   z += 5 * threadIdx.x;
   out += 3 * threadIdx.x;
-  Shock s;
+  Shock<Real> s;
   s.z_eq = z[0];
   s.z_ind = z[1];
   s.z_prem = z[2];
   s.u = z[3];
   s.z_j = z[4];
-  float g1, gi, g2;
+  Real g1, gi, g2;
   growth(sc, s, g1, gi, g2);
   out[0] = g1;
   out[1] = gi;
   out[2] = g2;
 }
 
-__global__ void count_accum(const float* __restrict__ fp,
-                            const float* __restrict__ g,
+__global__ void count_accum(const Real* __restrict__ fp,
+                            const Real* __restrict__ g,
                             const int* __restrict__ ip,
-                            float* __restrict__ v) {
-  const Scenario sc(fp);
-  Carry c = load_carry(carry_in(v));
+                            Real* __restrict__ v) {
+  const Scenario<Real> sc(fp);
+  Carry<Real> c = load_carry(carry_in(v));
   g += 3 * threadIdx.x;
   accum_month(sc, c, ip[0], g[0], g[1], g[2]);
   store_carry(carry_out(v), c);
 }
 
-__global__ void count_accum_plain(const float* __restrict__ fp,
-                                  const float* __restrict__ g,
-                                  float* __restrict__ v) {
-  const Scenario sc(fp);
-  Carry c = load_carry(carry_in(v));
+__global__ void count_accum_plain(const Real* __restrict__ fp,
+                                  const Real* __restrict__ g,
+                                  Real* __restrict__ v) {
+  const Scenario<Real> sc(fp);
+  Carry<Real> c = load_carry(carry_in(v));
   g += 3 * threadIdx.x;
   accum_month(sc, c, 5, g[0], g[1], g[2]);
   store_carry(carry_out(v), c);
 }
 
-__global__ void count_retire(const float* __restrict__ fp,
-                             const float* __restrict__ g,
+__global__ void count_retire(const Real* __restrict__ fp,
+                             const Real* __restrict__ g,
                              const int* __restrict__ ip,
-                             float* __restrict__ v) {
-  one_retire<false>(fp, g, ip[0], ip[1], ip[2], Records{}, v);
+                             Real* __restrict__ v) {
+  one_retire<false>(fp, g, ip[0], ip[1], ip[2], Records<Real>{}, v);
 }
 
 // m = 14, W = 12: retirement month 2, off the year boundary, the guardrails'
 // year start and the terminal settle.
-__global__ void count_retire_plain(const float* __restrict__ fp,
-                                   const float* __restrict__ g,
+__global__ void count_retire_plain(const Real* __restrict__ fp,
+                                   const Real* __restrict__ g,
                                    const int* __restrict__ ip,
-                                   float* __restrict__ v) {
-  one_retire<false>(fp, g, 14, 12, ip[2], Records{}, v);
+                                   Real* __restrict__ v) {
+  one_retire<false>(fp, g, 14, 12, ip[2], Records<Real>{}, v);
 }
 
-__global__ void count_retire_track(const float* __restrict__ fp,
-                                   const float* __restrict__ g,
+__global__ void count_retire_track(const Real* __restrict__ fp,
+                                   const Real* __restrict__ g,
                                    const int* __restrict__ ip,
-                                   float* __restrict__ series,
-                                   float* __restrict__ v) {
-  const Records rec{series, series + 1, series + 2, ip[3], ip[4],
+                                   Real* __restrict__ series,
+                                   Real* __restrict__ v) {
+  const Records<Real> rec{series, series + 1, series + 2, ip[3], ip[4],
                     ip[5],  ip[6],      ip[7],      ip[8]};
   one_retire<true>(fp, g, ip[0], ip[1], ip[2], rec, v);
 }
 
-__global__ void count_retire_track_plain(const float* __restrict__ fp,
-                                         const float* __restrict__ g,
+__global__ void count_retire_track_plain(const Real* __restrict__ fp,
+                                         const Real* __restrict__ g,
                                          const int* __restrict__ ip,
-                                         float* __restrict__ series,
-                                         float* __restrict__ v) {
-  const Records rec{series, series + 1, series + 2, ip[3], ip[4],
+                                         Real* __restrict__ series,
+                                         Real* __restrict__ v) {
+  const Records<Real> rec{series, series + 1, series + 2, ip[3], ip[4],
                     ip[5],  ip[6],      ip[7],      ip[8]};
   one_retire<true>(fp, g, 14, 12, ip[2], rec, v);
 }
+
+#if MCRT_THREEFRY
+__global__ void count_normal_band0(const uint2* __restrict__ y,
+                                   Real* __restrict__ out) {
+  normal_band<0>(y, out);
+}
+
+__global__ void count_normal_band1(const uint2* __restrict__ y,
+                                   Real* __restrict__ out) {
+  normal_band<1>(y, out);
+}
+
+#if MCRT_REAL_DOUBLE
+__global__ void count_normal_band2(const uint2* __restrict__ y,
+                                   Real* __restrict__ out) {
+  normal_band<2>(y, out);
+}
+#endif
+#endif
 
 }  // extern "C"

@@ -15,7 +15,12 @@ kernel is a form of one month loop (``csrc/month_loop.cu``):
     balance;
   * :func:`simulate_full` replaces ``pallas_simulate_full``
     (``pallas_kernel.py:1405``): the tracked loop -> seven per-path vectors
-    and the yearly trajectory, price-level and withdrawal-rate series.
+    and the yearly trajectory, price-level and withdrawal-rate series;
+  * :func:`scan_rows` and :func:`scan_full` replace the compiled form of
+    JAX's threefry scan, ``simulate_paths`` (``monte_carlo_retirement_tpu/
+    engine/kernel.py:124``, a ``lax.scan`` that XLA fuses into one device
+    loop): the probe's or the batch's rows, and the tracked run, on the
+    scan's own draws (:func:`scan_keys`), in float32 or float64.
 
 The probe and grid kernels draw each path-month once for all the rows of
 a block and share it through shared memory; :func:`tile_plan` decides
@@ -24,7 +29,8 @@ their launch (rows and paths per block, months per draw tile) and
 
 Beside each wrapper is its plain PyTorch version (:func:`probe_plain`,
 :func:`grid_plain`, :func:`simulate_plain`, :func:`simulate_full_plain`,
-thin calls into ``engine/kernel.py``). A wrapper takes the plain version
+:func:`scan_rows_plain`, :func:`scan_full_plain`: thin calls into
+``engine/kernel.py``). A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
 raises. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain
 calls, so a run can show which path it took; the counts stay exact when
@@ -42,6 +48,7 @@ use (``_build.py``), with every disabled feature compiled out.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import threading
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -51,14 +58,18 @@ import torch
 
 from ..constants import MONTHS_PER_YEAR
 from ..models.retirement import SimParams, prune_streams
+from ..ops import threefry
+from ..ops.shocks import JUMP_FOLD_OFFSET, MORT_FOLD_OFFSET
 
 # Kernel launches / plain-version calls since the last reset, changed only
-# under _COUNT_LOCK (a dict increment is a read-modify-write). "ad" counts
-# the AD passes of the sensitivity (engine/sensitivity.sensitivity_ad),
-# which run the plain loop by design.
-LAUNCHES: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0}
+# under _COUNT_LOCK (a dict increment is a read-modify-write). "scan" counts
+# both scan kernels (rows and full). "ad" counts the AD passes of the
+# sensitivity (engine/sensitivity.sensitivity_ad), which run the plain loop
+# by design, on either stream.
+LAUNCHES: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0,
+                            "scan": 0}
 PLAIN_CALLS: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0,
-                               "ad": 0}
+                               "scan": 0, "ad": 0}
 _COUNT_LOCK = threading.Lock()
 
 # Rows of a probe or grid launch: groups of rows ride gridDim.y.
@@ -345,16 +356,18 @@ def require_device(device) -> None:
         )
 
 
-def _runs_plain(packed: Packed, statics: Statics, what: str) -> bool:
+def _runs_plain(packed: Packed, statics: Statics, what: str,
+                dtypes=(torch.float32,)) -> bool:
     """True for CPU tensors; for CUDA tensors checks the card and the
     kernel's input contract (the pointers it is handed), then False."""
     require_device(packed.device)
     if packed.device.type == "cpu":
         return True
     fp, ip, S = packed.fp, packed.ip, packed.n_streams
-    if fp.dtype != torch.float32 or ip.dtype != torch.int32:
+    if fp.dtype not in dtypes or ip.dtype != torch.int32:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
         raise TypeError(
-            f"the {what} kernel takes float32 params and int32 iparams, got "
+            f"the {what} kernel takes {names} params and int32 iparams, got "
             f"{fp.dtype} / {ip.dtype}"
         )
     width = F.NUM + 5 * S
@@ -391,16 +404,18 @@ class SimulateOut(NamedTuple):
 
 
 class TilePlan(NamedTuple):
-    """One tiled launch of ``probe_kernel`` or ``grid_kernel``: ``rows`` x
-    ``n_paths`` in blocks of ``rows_per_block`` rows x 32 paths, drawing
-    ``months_per_chunk`` months of ``fields`` floats per path-month into
-    the block's tile at a time."""
+    """One tiled launch of ``probe_kernel``, ``grid_kernel`` or
+    ``scan_rows_kernel``: ``rows`` x ``n_paths`` in blocks of
+    ``rows_per_block`` rows x 32 paths, drawing ``months_per_chunk`` months
+    of ``fields`` values of ``elem_bytes`` each per path-month into the
+    block's tile at a time."""
 
     rows: int
     n_paths: int
     rows_per_block: int
     months_per_chunk: int
     fields: int
+    elem_bytes: int = 4
 
     @property
     def threads(self) -> int:
@@ -413,9 +428,9 @@ class TilePlan(NamedTuple):
 
     @property
     def smem_bytes(self) -> int:
-        """The draw tile [M][fields][32] floats and the block's largest
-        t_end."""
-        return 4 * (self.months_per_chunk * self.fields * WARP + 1)
+        """The draw tile [M][fields][32] values and the block's largest
+        t_end (an int)."""
+        return self.elem_bytes * self.months_per_chunk * self.fields * WARP + 4
 
     def cell(self, bx, by, tid):
         """(row, path) of thread ``tid`` of block (bx, by), as the kernel
@@ -425,7 +440,8 @@ class TilePlan(NamedTuple):
         return by * self.rows_per_block + warp, bx * WARP + lane
 
 
-def tile_plan(rows: int, n_paths: int, statics: Statics, kind: str) -> TilePlan:
+def tile_plan(rows: int, n_paths: int, statics: Statics, kind: str,
+              elem_bytes: int = 4) -> TilePlan:
     """The launch of ``rows`` x ``n_paths`` rows of a ``kind`` ("probe" or
     "grid") kernel: the rows split into the fewest groups of at most
     ``ROWS_PER_BLOCK``, as even as they go, one block of C rows x 32 paths
@@ -434,7 +450,9 @@ def tile_plan(rows: int, n_paths: int, statics: Statics, kind: str) -> TilePlan:
     holds many, keeps a small tile. A path-month of the tile is the
     probe's three growth factors (its rows share one parameter block), or
     the grid's three normals plus, with crashes, the crash uniform and
-    normal."""
+    normal. The scan's rows take the probe's form with one shared block
+    and the grid's with one block per row, in values of ``elem_bytes``
+    (8 in float64)."""
     rows, n_paths = int(rows), int(n_paths)
     if rows < 1 or n_paths < 1:
         raise ValueError(f"a tiled launch needs rows and paths, got {rows} x {n_paths}")
@@ -443,17 +461,20 @@ def tile_plan(rows: int, n_paths: int, statics: Statics, kind: str) -> TilePlan:
     per_block = -(-rows // -(-rows // ROWS_PER_BLOCK))
     return TilePlan(rows, n_paths, per_block,
                     min(MAX_TILE_MONTHS, MONTHS_PER_ROW * per_block),
-                    5 if kind == "grid" and statics.jumps else 3)
+                    5 if kind == "grid" and statics.jumps else 3,
+                    int(elem_bytes))
 
 
-def tile_work(plan: TilePlan, working_months, t_end) -> Dict[str, int]:
+def tile_work(plan: TilePlan, working_months, t_end,
+              acc_cap: Optional[int] = None) -> Dict[str, int]:
     """The least work of one tiled launch, counted as the kernel does it:
     ``draws`` charges each path-month once per block, over the block's real
     paths, up to the largest t_end of its rows; ``accum`` and ``retire``
     charge each row's body once per (row, path, month) up to the row's own
-    W and t_end."""
-    w = [int(v) for v in working_months]
+    W (or the scan's ``acc_cap``, where lower) and t_end."""
     t = [int(v) for v in t_end]
+    w_ret = [int(v) for v in working_months]
+    w = w_ret if acc_cap is None else [min(v, int(acc_cap)) for v in w_ret]
     if len(w) != plan.rows or len(t) != plan.rows:
         raise ValueError("one W and one t_end per row")
     C = plan.rows_per_block
@@ -461,8 +482,8 @@ def tile_work(plan: TilePlan, working_months, t_end) -> Dict[str, int]:
                 for g in range(plan.grid[1]))
     return {
         "draws": draws,
-        "accum": plan.n_paths * sum(w),
-        "retire": plan.n_paths * sum(te - wi for wi, te in zip(w, t)),
+        "accum": plan.n_paths * sum(max(v, 0) for v in w),
+        "retire": plan.n_paths * sum(te - wi for wi, te in zip(w_ret, t)),
     }
 
 
@@ -641,6 +662,150 @@ def simulate_full_plain(packed: Packed, statics: Statics,
 
 
 # ---------------------------------------------------------------------------
+# the scan: JAX's threefry scan (simulate_paths) as one kernel
+# ---------------------------------------------------------------------------
+SCAN_DTYPES = (torch.float32, torch.float64)
+
+
+@functools.lru_cache(maxsize=64)
+def scan_keys(stream_key, t_max: int, jumps: bool = False,
+              mortality: bool = False) -> torch.Tensor:
+    """The scan kernels' key table (``csrc/threefry.cuh``): (t_max + 1, 6)
+    int32 holding uint32 words, row m = [``fold_in(key, m)``, the two halves
+    of ``split(fold_in(key, JUMP_FOLD_OFFSET + m))`` (with ``jumps``)], row
+    0 = [``fold_in(key, MORT_FOLD_OFFSET)`` (with ``mortality``), 0 ...];
+    on the host, cached per key (a tuple of two ints)."""
+    m = torch.arange(int(t_max) + 1, dtype=torch.int64)
+    table = torch.zeros((len(m), 6), dtype=torch.int64)
+    table[:, 0], table[:, 1] = threefry.threefry2x32(stream_key, 0, m)
+    if jumps:
+        folded = threefry.threefry2x32(stream_key, 0, JUMP_FOLD_OFFSET + m)
+        table[:, 2], table[:, 3] = threefry.threefry2x32(folded, 0, 0)
+        table[:, 4], table[:, 5] = threefry.threefry2x32(folded, 0, 1)
+    table[0] = 0  # month 0 is never drawn: its row holds the longevity key
+    if mortality:
+        table[0, :2] = torch.tensor(threefry.fold_in(stream_key, MORT_FOLD_OFFSET))
+    return table.to(torch.int32)  # the uint32 bits
+
+
+def _scan_lib(packed: Packed, statics: Statics):
+    from . import _build
+
+    real = "float" if packed.fp.dtype == torch.float32 else "double"
+    return _build.load(_build.Unit(statics, real, "threefry"))
+
+
+def _scan_launch_keys(packed: Packed, statics: Statics, stream_key):
+    """The key table on the card, covering the rows' last month."""
+    t_max = int(packed.ip[:, I_T_END].max())
+    return scan_keys(stream_key, t_max, statics.jumps,
+                     statics.mortality).to(packed.device)
+
+
+def scan_rows(packed: Packed, statics: Statics, retirement_years: int,
+              n_paths: int, stream_key, *, t_scan: int,
+              row_offset: int = 0) -> ProbeOut:
+    """The JAX scan's rows (``simulate_paths`` in probe mode, vmapped over
+    working months): survivors, alive flags and final balances (K, n) of
+    the global paths ``row_offset ..`` on ``stream_key``'s threefry draws,
+    accumulating while m <= min(W, t_scan - 12 R). ``packed.fp`` is one
+    block shared by the rows (the probe) or one row each (a batch), in
+    float32 or float64. Kernel on a CUDA tensor, plain chain on a CPU one."""
+    if _runs_plain(packed, statics, "scan", SCAN_DTYPES):
+        return scan_rows_plain(packed, statics, retirement_years, n_paths,
+                               stream_key, t_scan=t_scan,
+                               row_offset=row_offset)
+    from . import _build
+
+    lib = _scan_lib(packed, statics)
+    fp, dev = packed.fp, packed.device
+    K, n = packed.ip.shape[0], int(n_paths)
+    shared = fp.ndim == 1
+    plan = tile_plan(K, n, statics, "probe" if shared else "grid",
+                     fp.element_size())
+    keys = _scan_launch_keys(packed, statics, stream_key)
+    success = torch.empty((K, n), dtype=fp.dtype, device=dev)
+    final = torch.empty((K, n), dtype=fp.dtype, device=dev)
+    counts = torch.zeros(K, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.mcrt_scan_rows(
+            fp.data_ptr(), packed.ip.data_ptr(), keys.data_ptr(), K, n,
+            packed.n_streams, int(shared), plan.rows_per_block,
+            plan.months_per_chunk, plan.fields, plan.smem_bytes,
+            plan.elem_bytes, int(t_scan) - MONTHS_PER_YEAR * int(retirement_years),
+            int(row_offset), success.data_ptr(), final.data_ptr(),
+            counts.data_ptr(), _stream_ptr(dev),
+        )
+    _build.check(lib, rc, "scan_rows_kernel launch")
+    _count(LAUNCHES, "scan")
+    return ProbeOut(counts.to(torch.int64), success, final)
+
+
+def scan_rows_plain(packed: Packed, statics: Statics, retirement_years: int,
+                    n_paths: int, stream_key, *, t_scan: int,
+                    row_offset: int = 0) -> ProbeOut:
+    """Plain PyTorch version of :func:`scan_rows`: the chain of torch ops
+    (``kernel.scan_chain``), one month at a time."""
+    from . import kernel
+
+    _count(PLAIN_CALLS, "scan")
+    out = kernel.scan_chain(packed, statics, retirement_years, n_paths,
+                            stream_key, t_scan=t_scan, row_offset=row_offset)
+    counts = (out["success"] > 0.5).sum(dim=1)
+    return ProbeOut(counts, out["success"], out["final_balance"])
+
+
+def scan_full(packed: Packed, statics: Statics, retirement_years: int,
+              n_paths: int, traj_len: int, stream_key, *, t_scan: int,
+              row_offset: int = 0) -> Dict[str, torch.Tensor]:
+    """The JAX scan's tracked run (``simulate_paths(traj_len > 0)``) of one
+    row: the fields of :func:`simulate_full`, in the block's dtype. Kernel
+    on a CUDA tensor, plain chain on a CPU one."""
+    if packed.ip.shape[0] != 1:
+        raise ValueError("scan_full takes one working_months value")
+    if _runs_plain(packed, statics, "scan", SCAN_DTYPES):
+        return scan_full_plain(packed, statics, retirement_years, n_paths,
+                               traj_len, stream_key, t_scan=t_scan,
+                               row_offset=row_offset)
+    from . import _build
+
+    lib = _scan_lib(packed, statics)
+    fp, dev = packed.fp, packed.device
+    n, R, L = int(n_paths), int(retirement_years), int(traj_len)
+    keys = _scan_launch_keys(packed, statics, stream_key)
+    vecs = torch.empty((len(VECTOR_FIELDS), n), dtype=fp.dtype, device=dev)
+    traj = torch.empty((L, n), dtype=fp.dtype, device=dev)
+    price = torch.empty((L, n), dtype=fp.dtype, device=dev)
+    wr = torch.empty((R, n), dtype=fp.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.mcrt_scan_full(
+            fp.reshape(-1).data_ptr(), packed.ip.data_ptr(), keys.data_ptr(),
+            n, R, L, packed.n_streams, fp.element_size(),
+            int(t_scan) - MONTHS_PER_YEAR * R, int(row_offset),
+            vecs.data_ptr(), traj.data_ptr(), price.data_ptr(),
+            wr.data_ptr(), _stream_ptr(dev),
+        )
+    _build.check(lib, rc, "scan_full_kernel launch")
+    _count(LAUNCHES, "scan")
+    out = dict(zip(VECTOR_FIELDS, vecs.unbind(0)))
+    out.update(trajectory=traj.t(), price_levels=price.t(),
+               withdrawal_rates=wr.t())
+    return out
+
+
+def scan_full_plain(packed: Packed, statics: Statics, retirement_years: int,
+                    n_paths: int, traj_len: int, stream_key, *, t_scan: int,
+                    row_offset: int = 0) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of :func:`scan_full`."""
+    from . import kernel
+
+    _count(PLAIN_CALLS, "scan")
+    return kernel.scan_chain(packed, statics, retirement_years, n_paths,
+                             stream_key, t_scan=t_scan, row_offset=row_offset,
+                             traj_len=traj_len)
+
+
+# ---------------------------------------------------------------------------
 # the device stream itself (checks only: holds it bit-equal to ops/shocks)
 # ---------------------------------------------------------------------------
 def device_draws(seed: torch.Tensor, block: torch.Tensor,
@@ -670,3 +835,32 @@ def device_draws(seed: torch.Tensor, block: torch.Tensor,
                               vals.data_ptr(), _stream_ptr(dev))
     _build.check(lib, rc, "normals_kernel launch")
     return words.to(torch.int64) & 0xFFFFFFFF, vals
+
+
+def device_threefry(key0: torch.Tensor, key1: torch.Tensor, hi: torch.Tensor,
+                    lo: torch.Tensor):
+    """The draws of ``engine/csrc/threefry.cuh`` computed on the card for
+    per-element keys (key0, key1) and flat-index words (hi, lo), all (n,)
+    CUDA tensors of uint32 values: words (2, n) int64 (y0, y1), float32
+    (2, n) and float64 (2, n) (the uniform, the normal)."""
+    from . import _build
+
+    dev = lo.device
+    require_device(dev)
+    if dev.type != "cuda" or not all(
+        t.device == dev and t.shape == lo.shape and t.ndim == 1
+        for t in (key0, key1, hi)
+    ):
+        raise ValueError("device_threefry takes four (n,) tensors on one CUDA device")
+    lib = _build.load()
+    inp = torch.stack([key0, key1, hi, lo]).to(torch.int64)
+    inp = (inp & 0xFFFFFFFF).to(torch.int32).contiguous()  # uint32 bits
+    n = int(inp.shape[1])
+    words = torch.empty((2, n), dtype=torch.int32, device=dev)
+    f32 = torch.empty((2, n), dtype=torch.float32, device=dev)
+    f64 = torch.empty((2, n), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.mcrt_threefry(inp.data_ptr(), n, words.data_ptr(),
+                               f32.data_ptr(), f64.data_ptr(), _stream_ptr(dev))
+    _build.check(lib, rc, "threefry_kernel launch")
+    return words.to(torch.int64) & 0xFFFFFFFF, f32, f64

@@ -27,8 +27,9 @@ candidate takes the accumulation step while m <= W and the retirement step
 while W < m <= W + 12R, and its snapshot right after its own month W. The
 loop runs in float64 on the CPU (the tests and the CPU engine) and in
 float32 on the card, where it is the yardstick of the kernels; as the
-scan it runs in either precision on either device (a float64 engine on
-the card runs it).
+scan (:func:`scan_chain`) it runs in either precision on either device:
+the CPU's scan, the yardstick of the scan kernels on the card, and the
+AD pass's loop.
 """
 
 from __future__ import annotations
@@ -57,7 +58,16 @@ from ..ops.tax import (
     rebalance_lite,
     withdraw_pro_rata,
 )
-from .cuda_kernel import F, Packed, Statics, _fparams, _iparams, require_device
+from .cuda_kernel import (
+    F,
+    Packed,
+    Statics,
+    _fparams,
+    _iparams,
+    require_device,
+    scan_full,
+)
+from .cuda_kernel import scan_rows as scan_rows_kernel
 
 EPS = SMALL_EPSILON
 Y = MONTHS_PER_YEAR
@@ -467,9 +477,11 @@ def simulate(
             ret_st = ret_month(m, st, g) if m > w_min else None
             if ret_st is None and m <= min(acc_end):
                 st = acc_st
-            elif acc_st is None and m <= min(t_end_list):
+            elif acc_st is None and w_max < m <= min(t_end_list):
                 st = ret_st
             else:
+                # Masked: some rows accumulate, retire, or wait (past the
+                # scan's accumulation cap, before their W) or have ended.
                 in_acc = m <= acc_t
                 in_ret = (m > w_t) & (m <= t_end_t)
                 new = {}
@@ -595,24 +607,28 @@ def scan_statics(params, antithetic: bool = False, jumps: bool = False,
     )
 
 
-def scan_rows(params, months: Sequence[int], stream_key, *, n_paths: int,
-              t_scan: int, retirement_years: int, dtype,
-              antithetic: bool = False, jumps: bool = False,
-              mortality: bool = False, row_offset: int = 0, device=None,
-              traj_len: int = 0,
-              statics: Optional[Statics] = None) -> Dict[str, torch.Tensor]:
-    """The scan of every working-months row of ``months`` on one key's
-    shared draws: ``params`` shared by the rows (the vmapped probe,
-    ``runner.py::_probe_impl``) or one row each (a stacked batch,
-    ``scenario_batch.py::_batch_impl``). Returns the plain loop's dict:
-    success (0/1) and final balance (K, n), plus the tracked fields for
-    ``traj_len > 0`` (one row).
+def scan_chain(packed: Packed, statics: Statics, retirement_years: int,
+               n_paths: int, stream_key, *, t_scan: int, row_offset: int = 0,
+               traj_len: int = 0) -> Dict[str, torch.Tensor]:
+    """The scan as a chain of torch ops: the loop above on ``ScanDraws`` of
+    ``stream_key`` for the global paths ``row_offset ..``, in ``packed``'s
+    dtype, accumulating while m <= min(W, t_scan - 12 R). The plain version
+    of the scan kernels (``cuda_kernel.scan_rows_plain``/``scan_full_plain``)
+    and, under ``torch.func.jacfwd``, the AD pass's loop (a kernel carries
+    no tangent: ``sensitivity_ad(backend="scan")`` calls this by name)."""
+    draws = ScanDraws(stream_key, n_paths, packed.fp.dtype,
+                      antithetic=statics.antithetic, jumps=statics.jumps,
+                      row_offset=row_offset, device=packed.device)
+    return simulate(packed, statics, retirement_years, n_paths,
+                    traj_len=traj_len, draws=draws,
+                    acc_months=int(t_scan) - MONTHS_PER_YEAR * int(retirement_years))
 
-    ``statics`` (default: :func:`scan_statics` of ``params``) is the loop's
-    structure when the caller fixes it: under ``torch.func.jacfwd`` the
-    leaves that depend on theta carry tangents and cannot be read as
-    flags, so the AD pass derives it once from the base parameters. Its
-    ``antithetic``, ``jumps`` and ``mortality`` then select the draws."""
+
+def scan_block(params, months, retirement_years, dtype, antithetic=False,
+               jumps=False, mortality=False, device=None, statics=None):
+    """The scan kernels' argument block (``Packed``: ``params`` as one
+    shared block or one row each, months as iparams rows, on ``device``)
+    and the loop's structure (``statics``, default :func:`scan_statics`)."""
     device = torch.device(params.initial_balance.device if device is None
                           else device)
     require_device(device)
@@ -622,15 +638,38 @@ def scan_rows(params, months: Sequence[int], stream_key, *, n_paths: int,
     R = int(retirement_years)
     if statics is None:
         statics = scan_statics(params, antithetic, jumps, mortality)
-    antithetic, jumps = statics.antithetic, statics.jumps
     packed = Packed(fp=_fparams(params, dtype).to(device).contiguous(),
                     ip=_iparams(months, R, 0, 0, device),
                     n_streams=params.n_streams)
-    draws = ScanDraws(stream_key, n_paths, dtype, antithetic=antithetic,
-                      jumps=jumps, row_offset=row_offset, device=device)
-    return simulate(packed, statics, R, n_paths, traj_len=traj_len,
-                    draws=draws,
-                    acc_months=int(t_scan) - MONTHS_PER_YEAR * R)
+    return packed, statics
+
+
+def scan_rows(params, months: Sequence[int], stream_key, *, n_paths: int,
+              t_scan: int, retirement_years: int, dtype,
+              antithetic: bool = False, jumps: bool = False,
+              mortality: bool = False, row_offset: int = 0, device=None,
+              traj_len: int = 0,
+              statics: Optional[Statics] = None) -> Dict[str, torch.Tensor]:
+    """The scan of every working-months row of ``months`` on one key's
+    shared draws: ``params`` shared by the rows (the vmapped probe,
+    ``runner.py::_probe_impl``) or one row each (a stacked batch,
+    ``scenario_batch.py::_batch_impl``). Returns success (0/1) and final
+    balance (K, n), plus the tracked fields for ``traj_len > 0`` (one row).
+    On the card it launches the scan kernel (``cuda_kernel.scan_rows`` /
+    ``scan_full``) or raises; on the CPU it runs their plain chain.
+
+    ``statics`` (default: :func:`scan_statics` of ``params``) is the loop's
+    structure when the caller fixes it; its ``antithetic``, ``jumps`` and
+    ``mortality`` then select the draws."""
+    packed, statics = scan_block(params, months, retirement_years, dtype,
+                                  antithetic, jumps, mortality, device, statics)
+    R = int(retirement_years)
+    if traj_len > 0:
+        return scan_full(packed, statics, R, n_paths, traj_len, stream_key,
+                         t_scan=t_scan, row_offset=row_offset)
+    out = scan_rows_kernel(packed, statics, R, n_paths, stream_key,
+                           t_scan=t_scan, row_offset=row_offset)
+    return {"success": out.success, "final_balance": out.final_balance}
 
 
 def simulate_paths(params, working_months, stream_key, *, n_paths: int,
@@ -643,9 +682,10 @@ def simulate_paths(params, working_months, stream_key, *, n_paths: int,
     engine's threefry stream ``stream_key`` (the JAX ``simulate_paths``,
     ``engine/kernel.py:124-213``, same arguments and results).
 
-    The months run through the plain loop's body, one month's draws at a
-    time (``ScanDraws``): accumulation while m <= min(W, t_scan - 12 R),
-    the retirement snapshot, then the 12 R retirement months. ``traj_len
+    The months run through the scan kernel on the card, through the plain
+    loop's body one month's draws at a time on the CPU (``ScanDraws``):
+    accumulation while m <= min(W, t_scan - 12 R), the retirement
+    snapshot, then the 12 R retirement months. ``traj_len
     == 0`` is probe mode (success and final balance only); ``antithetic``,
     ``jumps`` and ``mortality`` select the paired sampling, the crash draws
     and the longevity draw. ``row_offset`` simulates the global paths

@@ -55,7 +55,7 @@ from .cuda_kernel import (
     require_device,
     statics_from_config,
 )
-from .kernel import scan_rows
+from .kernel import scan_rows, scan_statics
 from .sharded import grid_raw_sharded
 
 __all__ = [
@@ -273,6 +273,37 @@ def run_scenario_grid(
     return result
 
 
+def _scan_groups(configs) -> dict:
+    """The scan route's groups: rows that share tax systems and stream
+    kinds (the loop's structure), in the caller's order."""
+    groups: dict = {}
+    for i, cfg in enumerate(configs):
+        st = statics_from_config(cfg)
+        key = (st.use_real1, st.use_real2, st.stream_indexed, st.stream_capped)
+        groups.setdefault(key, []).append(i)
+    return groups
+
+
+def _scan_flags(configs) -> dict:
+    """The scan route's draws: crash and longevity draws for every group
+    when any row has them (the batch shares ``antithetic``)."""
+    return dict(
+        antithetic=bool(configs[0].antithetic),
+        jumps=any(c.market_crashes is not None for c in configs),
+        mortality=any(c.longevity is not None for c in configs),
+    )
+
+
+def scan_batch_statics(configs: Sequence[Config]) -> List[Statics]:
+    """The structure each group of :func:`run_scenario_batch`'s scan route
+    runs under (``kernel.scan_statics`` of its stacked rows): the Statics
+    of its scan kernel's libraries, one per group, to build ahead."""
+    configs = list(configs)
+    flags = _scan_flags(configs)
+    return [scan_statics(stack_params([configs[i] for i in rows]), **flags)
+            for rows in _scan_groups(configs).values()]
+
+
 def run_scenario_batch(
     configs: Sequence[Config],
     working_months: Sequence[int],
@@ -302,7 +333,9 @@ def run_scenario_batch(
       card, float64 on the CPU): the kernel runs in float32 only.
     * "scan": JAX's ``run_scenario_batch`` (``_batch_impl``): threefry
       scans of every row at its own W on ``stream_keys(seed)[1]``, over
-      ``t_scan`` months, in ``dtype`` (default float32, JAX's default).
+      ``t_scan`` months, in ``dtype`` (default float32, JAX's default):
+      one scan-kernel launch per group on the card, its plain chain on the
+      CPU.
       The loop keeps tax systems and stream kinds as structure, so the
       rows run in groups that share them; the crash and longevity draws
       are on for every group when any row of the batch has them.
@@ -345,17 +378,9 @@ def run_scenario_batch(
     groups: dict = {}
     if backend == "scan":
         dtype = torch.float32 if dtype is None else dtype
-        for i, cfg in enumerate(configs):
-            st = statics_from_config(cfg)
-            key = (st.use_real1, st.use_real2, st.stream_indexed,
-                   st.stream_capped)
-            groups.setdefault(key, []).append(i)
+        groups = _scan_groups(configs)
         final_key = stream_keys(seed)[1]
-        flags = dict(
-            antithetic=anti.pop(),
-            jumps=any(c.market_crashes is not None for c in configs),
-            mortality=any(c.longevity is not None for c in configs),
-        )
+        flags = _scan_flags(configs)
 
         def run_group(rows):
             out = scan_rows(stack_params([configs[i] for i in rows]),

@@ -14,8 +14,9 @@ package's ``engine/sensitivity.py``, with the port's imports):
   tangent in one pass. The JAX package differentiates its XLA scan, not a
   Pallas kernel, so the plain loop is the faithful counterpart. By default
   the paths are the grid kernel's (the same Philox stream seed); with
-  ``backend="scan"`` they are JAX's own (``simulate_paths`` on
-  ``stream_keys(seed)[1]``). Both functions read ``MCRT_GRID_BACKEND``, so
+  ``backend="scan"`` they are JAX's own (``simulate_paths``' draws on
+  ``stream_keys(seed)[1]``, through the scan's plain chain,
+  ``kernel.scan_chain``: the scan kernel has no tangent). Both functions read ``MCRT_GRID_BACKEND``, so
   AD and the CRN finite difference always see the same shocks. Success is
   a step function (AD sees derivative 0), so AD covers the smooth
   mean-final-balance metric as an independent cross-check of the FD
@@ -555,10 +556,12 @@ def sensitivity_ad(
         final_key = stream_keys(seed)[1]
 
         def final_balances(p):
-            return kernel.simulate_paths(
-                p, w, final_key, n_paths=n, t_scan=w + MONTHS_PER_YEAR * R,
-                retirement_years=R, traj_len=0, dtype=dtype, device=device,
-                statics=statics).final_balance
+            # The plain chain by name: a kernel carries no tangent.
+            packed, _ = kernel.scan_block(p, [w], R, dtype, device=device,
+                                          statics=statics)
+            return kernel.scan_chain(packed, statics, R, n, final_key,
+                                     t_scan=w + MONTHS_PER_YEAR * R
+                                     )["final_balance"][0]
     else:
         statics = statics_from_config(config)
         stream_seed = _grid_stream_seed(seed)

@@ -51,9 +51,11 @@ def _rotl(x: Words, r: int) -> Words:
 def threefry2x32(key: Key, x0: Words, x1: Words) -> Tuple[Words, Words]:
     """The 20-round Threefry-2x32 hash of the counter pairs ``(x0, x1)``
     under ``key`` (``jax/_src/prng.py::_threefry2x32_lowering``). The
-    counters are Python ints or int64 tensors of uint32 values (they
-    broadcast); so are the two output words."""
-    k0, k1 = int(key[0]) & MASK32, int(key[1]) & MASK32
+    counters, and the key's two words, are Python ints or int64 tensors of
+    uint32 values (they broadcast: a tensor key hashes under one key per
+    element); so are the two output words."""
+    k0, k1 = (k & MASK32 if isinstance(k, torch.Tensor) else int(k) & MASK32
+              for k in key)
     ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32
@@ -143,6 +145,12 @@ def uniform(key: Key, shape: Sequence[int], dtype=torch.float32,
     of the span, since XLA fuses the scale and the shift into one
     rounding."""
     y0, y1 = random_words(key, shape, row_offset, device)
+    return uniform_from_words(y0, y1, dtype, minval, maxval)
+
+
+def uniform_from_words(y0: torch.Tensor, y1: torch.Tensor, dtype,
+                       minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """:func:`uniform` of draws whose words (y0, y1) are given."""
     floats = _unit_floats(y0, y1, dtype) - 1.0
     lo = torch.tensor(minval, dtype=dtype, device=floats.device)
     hi = torch.tensor(maxval, dtype=dtype, device=floats.device)
@@ -229,8 +237,14 @@ def normal(key: Key, shape: Sequence[int], dtype=torch.float32,
            row_offset: int = 0, device="cpu") -> torch.Tensor:
     """``jax.random.normal(key, shape, dtype)``: ``sqrt(2) *
     erfinv(u)`` with ``u`` uniform on ``(nextafter(-1, 0), 1)``."""
+    y0, y1 = random_words(key, shape, row_offset, device)
+    return normal_from_words(y0, y1, dtype)
+
+
+def normal_from_words(y0: torch.Tensor, y1: torch.Tensor, dtype) -> torch.Tensor:
+    """:func:`normal` of draws whose words (y0, y1) are given."""
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     lo = float(np.nextafter(np_dtype(-1.0), np_dtype(0.0)))
-    u = uniform(key, shape, dtype, lo, 1.0, row_offset, device)
+    u = uniform_from_words(y0, y1, dtype, lo, 1.0)
     return erfinv(u) * torch.tensor(float(np.sqrt(np_dtype(2.0))), dtype=dtype,
                                     device=u.device)

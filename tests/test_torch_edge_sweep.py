@@ -118,5 +118,14 @@ def test_income_that_covers_the_expenses_leaves_no_need():
                        "month_loop.cu")
     with open(src, encoding="utf-8") as fh:
         text = fh.read()
-    assert "__fsub_rn(need, net_income)" in text
-    assert "__fmul_rn(nominal, sc.net[S])" in text
+    # The month body is generic over float and double: the need and the
+    # income go through r_sub_rn / r_mul_rn, whose overloads are the
+    # rounded intrinsics (never contracted into a fused multiply-add).
+    assert "r_sub_rn(need, net_income)" in text
+    assert "r_mul_rn(nominal, sc.net[S])" in text
+    for overload in (
+            "float r_mul_rn(float a, float b) { return __fmul_rn(a, b); }",
+            "double r_mul_rn(double a, double b) { return __dmul_rn(a, b); }",
+            "float r_sub_rn(float a, float b) { return __fsub_rn(a, b); }",
+            "double r_sub_rn(double a, double b) { return __dsub_rn(a, b); }"):
+        assert overload in text, overload

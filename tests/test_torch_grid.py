@@ -415,5 +415,5 @@ def test_grid_wrappers_on_a_cuda_tensor_without_a_card_raise():
     ck.simulate(one, statics, 4, 64)
     ck.grid(rows, statics, 4, 64)
     assert ck.PLAIN_CALLS == {"probe": 0, "grid": 1, "simulate": 1, "full": 0,
-                              "ad": 0}
+                              "scan": 0, "ad": 0}
     assert not any(ck.LAUNCHES.values())

@@ -214,7 +214,10 @@ def test_backend_and_dtype_resolution(monkeypatch):
     ck.reset_counts()
     scan = sb.run_scenario_batch(configs, months, 300, seed=SEED, device="cpu",
                                  backend="scan")
-    assert not any(ck.PLAIN_CALLS.values())  # the scan runs no kernel version
+    # The scan runs no kernel's plain version: its own plain chain, once
+    # per group of rows (the CPU's scan), and nothing else.
+    assert ck.PLAIN_CALLS == {"probe": 0, "grid": 0, "simulate": 0,
+                              "full": 0, "scan": 3, "ad": 0}
     monkeypatch.setenv("MCRT_GRID_BACKEND", "scan")
     knob = sb.run_scenario_batch(configs, months, 300, seed=SEED, device="cpu")
     for a, b in zip(scan, knob):

@@ -165,6 +165,8 @@ def _listing(kernels):
 
 @pytest.mark.parametrize("opcode,pipe", [
     ("FFMA", "fp32"), ("FADD.FTZ", "fp32"), ("HFMA2.MMA", "fp32"),
+    ("DFMA", "fp64"), ("DADD", "fp64"), ("DMUL", "fp64"),
+    ("DSETP.GEU.AND", "fp64"), ("MUFU.RCP64H", "xu"), ("F2F.F64.F32", "xu"),
     ("IMAD.HI.U32", "imad"), ("IMAD.WIDE", "imad"), ("MUFU.EX2", "xu"),
     ("I2F.U32", "xu"), ("F2I.TRUNC", "xu"), ("LOP3.LUT", "alu"),
     ("FSETP.GT.AND", "alu"), ("FMNMX", "alu"), ("SEL", "alu"),
@@ -184,8 +186,10 @@ def test_sass_pipes_count_the_main_body_only():
         ("count_b", ["FADD R1, R2, R3", "FMUL R1, R1, R1"]),
     ])
     pipes = bound.sass_pipes(sass)
-    assert pipes["count_a"] == {"fp32": 1, "imad": 1, "alu": 1, "xu": 1, "shfl": 0}
-    assert pipes["count_b"] == {"fp32": 2, "imad": 0, "alu": 0, "xu": 0, "shfl": 0}
+    assert pipes["count_a"] == {"fp32": 1, "fp64": 0, "imad": 1, "alu": 1,
+                                "xu": 1, "shfl": 0}
+    assert pipes["count_b"] == {"fp32": 2, "fp64": 0, "imad": 0, "alu": 0,
+                                "xu": 0, "shfl": 0}
 
 
 def test_loads_take_the_busiest_pipe_and_share_the_fma_pipe():
