@@ -10,12 +10,16 @@ result):
      per Statics the run uses (config.json's, each extension alone, all
      extensions together), one scan library per scan structure and dtype
      (float32, float64: config.json's, the all-on config's, jorge.json's and
-     phase 15's batch groups), the stream check and the op-count cubins of
-     config.json's and the all-on Statics and of config.json's scan in both
-     dtypes, one nvcc each, all started together; each library's registers
-     and spills per kernel (ptxas), the dynamic shared memory of phase 6's
-     tiled launches, and the SASS pipe loads of a draw and a month step
-     (engine/bound.py) behind every bound;
+     phase 15's batch groups), one JVP library per Statics, dtype and draw
+     source that phases 8f, 10d, 15b and 16 launch (JVP_TK tangents a
+     launch) and config.json's at 8 tangents (never launched: its ptxas
+     lines record the choice of JVP_TK), the stream check and the op-count
+     cubins of config.json's and the all-on Statics, of config.json's scan
+     in both dtypes and of its JVP units at 8 tangents (both dtypes, both
+     draw sources), one nvcc each, all started together; each
+     library's registers and spills per kernel (ptxas), the dynamic shared
+     memory of phase 6's tiled launches, and the SASS pipe loads of a draw
+     and a month step (engine/bound.py) behind every bound;
   2. the device draws vs ops/shocks.py in torch on the card: the month,
      crash and longevity Philox words equal, the crash and longevity
      uniforms equal, the normals within 2e-6 relative; then the scan
@@ -70,11 +74,14 @@ result):
      guardrail and the annual tax rate (d success < 0 for the first two
      and the tax rate); then bench.py's workload through simulate (one
      launch, held to simulate_plain and to the probe kernel's flags at W=0);
-     then the AD cross-check (sensitivity_ad: torch.func.jacfwd through the
-     plain loop, one counted AD pass) at 1,048,576 paths, config.json,
-     W=231, the 8 default parameters: every gradient finite, d/d expenses
-     < 0 and d/d equity mean > 0, both within 5% of a CRN central
-     difference of the mean final balance on the grid kernel, its wall;
+     then the AD cross-check (sensitivity_ad on jvp_kernel: launched, no
+     plain AD pass) at 1,048,576 paths, config.json, W=231, the 8 default
+     parameters, twice (the process's first AD call, after importing
+     torch._dynamo, which torch's forward AD loads on first use, timed
+     apart; then a warm call): every gradient finite, d/d expenses < 0 and
+     d/d equity mean > 0, both within 5% of a CRN central difference of the
+     mean final balance on the grid kernel; both walls and the kernel's
+     time alone;
   9. the extensions on the card, each alone and all together (config.json
      plus EXTENSIONS below, R = 20): probe_kernel, grid_kernel (3 ragged
      rows) and full_kernel against their plain versions at 65,536 paths with the
@@ -99,7 +106,7 @@ result):
      /api/grid (16 variants x 1M), /api/sensitivity and /api/optimize
      (65,536 paths) valid and on the grid kernel, /api/sensitivity with
      include_ad (ad_num_paths 65,536) 200 with an AD slope on every row,
-     its FD rows on the grid kernel and one AD pass; (e) times: warm
+     its FD rows on the grid kernel and its AD on jvp_kernel; (e) times: warm
      /api/simulate wall (min and median of 5) split into search, final
      run, payload assembly and JSON encoding, the response's bytes, the
      same with include_raw_paths, and the first request of a fresh server
@@ -187,22 +194,42 @@ result):
      R = 50: each row within max(3 sigma, 0.5) points of the same row on
      the grid-kernel route (one launch per Statics), both walls, one scan
      launch per group and no plain chain; (b)
-     sensitivity_ad(backend="scan") of the 8 default parameters, which
-     runs the plain chain by name (a kernel carries no tangent; counted as
-     ad): float64 at 4,113 paths on the card against the CPU (the value
-     and every gradient within 1e-10 relative), then float32 at 1,048,576
-     paths, config.json, W=231: every gradient finite, d/d expenses < 0 <
-     d/d equity mean, both within 5% of the central difference of
-     sensitivity_fd(backend="scan") (the scan kernel) at the same paths,
-     its wall beside phase 8f's.
+     sensitivity_ad(backend="scan") of the 8 default parameters on
+     jvp_kernel (launched, no plain AD pass): float64 at 4,113 paths on the
+     card against the CPU's plain version (the value and every gradient
+     within 1e-10 relative), then float32 at 1,048,576 paths, config.json,
+     W=231: every gradient finite, d/d expenses < 0 < d/d equity mean, both
+     within 5% of the central difference of sensitivity_fd(backend="scan")
+     (the scan kernel) at the same paths; its wall beside phase 8f's and
+     the kernel's time alone.
+ 16. jvp_kernel (the JVP of one row's month loop, sensitivity_ad's kernel)
+     against its plain version (torch.func.jvp of the chain) on the card:
+     (a) float64 at 4,113 paths, R = 10, W = 150, on the grid kernel's
+     Philox draws and on the scan's threefry draws from the odd global row
+     4,097, under config.json's and the all-on Statics (8 directions, two
+     launches each): success flags equal, per-path finals and tangents
+     within 1e-10 of each direction's largest; (b) the same where real
+     paths meet the chain's tie rules (ruined paths at exactly 0, a pension
+     paying the expenses exactly, a guardrail cut onto its floor or raised
+     onto its cap), along two parameters and the guardrails' adjustment,
+     floor and cap slots (5 directions: the last launch zero-padded); (c)
+     float32 at 2**16 paths at phase 8f's scenario on both draw sources,
+     gate (b): flags mismatching below 3e-3, the mean final and every
+     gradient within 5e-3 relative; (d) its times at phase 8f's shape,
+     float32 and float64 on both draw sources (CUDA events, min of 3),
+     beside their bounds (engine/bound.py: the draws and the primal once,
+     each of the 8 directions once, from op-count units of 8 tangents),
+     and in float32 one call of the plain version at that shape per draw
+     source, timed, the kernel held to it by (c)'s gate.
 
 The kernels' line comes before the last two: {"kernels": [...]}, one row
 per kernel with its launches on the main path (phase 5), the grid path
 (phase 8), the server's routes (phase 10a-d), the chunked runs (phase
 11), the paths mesh (phase 12) and the tools (phase 13a, d, e), its
-time, bound and plain version's time, and the scan kernels' row with
+time, bound and plain version's time, the scan kernels' row with
 their launches on the float64 main path (14c) and the scan's other
-routes (14d, 14e, 15a, 15b); then the card's
+routes (14d, 14e, 15a, 15b), and jvp_kernel's row with its launches on
+the AD routes (8f, 10d, 15b) and its times (16d); then the card's
 name and power limit on their own line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -341,6 +368,35 @@ W_15_PARITY = 228
 EXPENSES_15_PARITY = 20_000.0
 PARITY_15A = 1e-12  # card vs CPU, float64 batch statistics (relative)
 PARITY_15B = 1e-10  # card vs CPU, float64 AD value and gradients
+# Phase 16: jvp_kernel against its plain version (torch.func.jvp of the
+# chain) on the card. float64 per-path finals and tangents within
+# PARITY_15B of each direction's largest |tangent|; float32 gate (b): flags
+# mismatching below FLAGS_16 and the mean final and each gradient within
+# MEANS_16 relative.
+FLAGS_16 = 3e-3
+MEANS_16 = 5e-3
+N_16_F32 = 2**16
+JVP_REPLACES = "monte_carlo_retirement_tpu/engine/sensitivity.py:476"
+# Where real paths meet the chain's tie rules (tests/test_torch_jvp_kernel.py
+# (c)): config.json's rates and taxes, 15% equity volatility, W = 12 (the
+# ruin case W = 0), and per case (R, overrides).
+TIE_BASE = dict(inv1_returns_volatility=0.15, monthly_contribution=0.0)
+TIES_16 = {
+    "ruined paths (final exactly 0)": (6, dict(
+        initial_balance=100_000.0, monthly_expenses=1_500.0)),
+    "pension pays the expenses (need exactly 0)": (4, dict(
+        initial_balance=200_000.0, monthly_expenses=3_000.0,
+        other_income_streams=[dict(
+            name="pension", monthly_amount_today=3_000.0, start_at_age=40.0,
+            duration_years=None, inflation_indexed=True, tax_rate=0.0)])),
+    "guardrail cut onto its floor": (2, dict(spending_guardrails=dict(
+        upper_wr_pct=0.5, lower_wr_pct=0.0, adjustment_pct=10.0,
+        floor_pct=90.0))),
+    "guardrail raise onto its cap": (2, dict(spending_guardrails=dict(
+        upper_wr_pct=100.0, lower_wr_pct=99.0, adjustment_pct=10.0,
+        cap_pct=110.0))),
+}
+TIE_PARAMS = ["monthly_expenses", "initial_balance"]
 
 
 def _card_line() -> str:
@@ -421,6 +477,75 @@ def _scan_units():
             for st in dict.fromkeys(statics) for real in ("float", "double")]
 
 
+def _jvp_cases():
+    """(label, config, W, R, parameters) of every JVP launch phases 8f,
+    10d, 15b and 16 make, for their libraries."""
+    from monte_carlo_retirement_tpu_torch.engine.sensitivity import DEFAULT_PARAMS
+
+    names = list(DEFAULT_PARAMS)
+    cases = [("config.json", _config(), GRID_W, names),
+             ("15b", _config(retirement_years=R_14B,
+                             monthly_expenses=EXPENSES_15_PARITY),
+              W_15_PARITY, names),
+             ("all-on", _config(retirement_years=R_14B, **dict(ALL_ON)),
+              W_14B, names)]
+    for label, (R, over) in TIES_16.items():
+        cases.append((label, _config(retirement_years=R, **TIE_BASE, **over),
+                      0 if label.startswith("ruined") else 12, TIE_PARAMS))
+    return cases
+
+
+def _jvp_unit(cfg, names, real, draws, tk=None):
+    """The JVP library sensitivity_ad launches for ``cfg`` on ``draws``
+    (its op-count unit at ``tk`` tangents)."""
+    from monte_carlo_retirement_tpu_torch.engine import _build
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine.sensitivity import (
+        _scan_statics_ad,
+    )
+
+    st = (_scan_statics_ad(cfg, names, "cpu") if draws == "threefry"
+          else ck.statics_from_config(cfg))
+    return _build.Unit(st, real, draws, tk or ck.JVP_TK)
+
+
+def _jvp_units():
+    return list(dict.fromkeys(
+        _jvp_unit(cfg, names, real, draws) for _, cfg, _, names in _jvp_cases()
+        for real in ("float", "double") for draws in ("philox", "threefry")))
+
+
+def _jvp_wide_units():
+    """config.json's JVP libraries at one tangent per direction: never
+    launched, built for phase 1's ptxas lines beside JVP_TK's, the record
+    of that choice (registers, spills)."""
+    names = _jvp_cases()[0][3]
+    return [_jvp_unit(_config(), names, real, draws, tk=len(names))
+            for real in ("float", "double") for draws in ("philox", "threefry")]
+
+
+def _counted_units():
+    """{label: the library or unit whose op-count cubin prices a bound}.
+    The JVP units carry as many tangents as 8f's directions, so one pass
+    prices what sensitivity_ad needs: the draws and the primal once, each
+    direction's tangents once (the kernel's launches of JVP_TK directions
+    each redo the draws and the primal: its cost, not the function's work)."""
+    from monte_carlo_retirement_tpu_torch.engine import _build
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+
+    scan_slice = _scan_statics(_config())
+    counted = {"slice": ck.statics_from_config(_config()),
+               "all-on": ck.statics_from_config(_config(**dict(ALL_ON))),
+               "scan f32": _build.Unit(scan_slice, "float", "threefry"),
+               "scan f64": _build.Unit(scan_slice, "double", "threefry")}
+    names = _jvp_cases()[0][3]
+    for real, tag in (("float", "f32"), ("double", "f64")):
+        for draws in ("philox", "threefry"):
+            counted[f"jvp {draws} {tag}"] = _jvp_unit(_config(), names, real,
+                                                      draws, tk=len(names))
+    return counted
+
+
 def _grid_raw():
     with open(os.path.join(REPO, "config.json"), encoding="utf-8") as fh:
         raw = json.load(fh)
@@ -468,6 +593,20 @@ def _time_ms(fn, repeats=5, warm=True):
     return best
 
 
+def _once_ms(fn):
+    """(fn()'s result, its CUDA-event ms): one call, not warmed."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def _ptxas_summary(log: str) -> dict:
     """{kernel: (registers, spill store bytes, spill load bytes)} from a
     build log of nvcc -Xptxas -v."""
@@ -480,8 +619,8 @@ def _ptxas_summary(log: str) -> dict:
             name = next((k for k in ("probe_kernel", "grid_kernel",
                                      "scan_full_kernel", "full_kernel",
                                      "normals_kernel", "threefry_kernel",
-                                     "scan_rows_kernel") if k in m.group(1)),
-                        m.group(1))
+                                     "scan_rows_kernel", "jvp_kernel")
+                         if k in m.group(1)), m.group(1))
             if name == "scan_rows_kernel":  # one instance per parameter form
                 name += "<shared>" if "ILb1E" in m.group(1) else "<per-row>"
             continue
@@ -529,12 +668,8 @@ def phase_build(report):
     report["card"] = _card_line()
     print(f"[1] card: {report['card']} | torch: {torch.cuda.get_device_name(0)}"
           f" | torch {torch.__version__} cuda {torch.version.cuda}")
-    statics = _run_statics() + _scan_units()
-    scan_slice = _scan_statics(_config())
-    counted = {"slice": ck.statics_from_config(_config()),
-               "all-on": ck.statics_from_config(_config(**dict(ALL_ON))),
-               "scan f32": _build.Unit(scan_slice, "float", "threefry"),
-               "scan f64": _build.Unit(scan_slice, "double", "threefry")}
+    statics = _run_statics() + _scan_units() + _jvp_units() + _jvp_wide_units()
+    counted = _counted_units()
     t0 = time.perf_counter()
     paths, built = _build.build_many(statics + [None], list(counted.values()))
     for st in statics:
@@ -547,7 +682,11 @@ def phase_build(report):
     report["ptxas"] = {}
     for st, so in zip(statics + [None], paths):
         label = "stream check" if st is None else _statics_label(st)
-        if isinstance(st, _build.Unit):
+        if isinstance(st, _build.Unit) and st.tk:
+            label += f" | jvp, {st.draws}, {st.real}, TK {st.tk}"
+            if st.tk != ck.JVP_TK:
+                label += f" (never launched: beside JVP_TK = {ck.JVP_TK})"
+        elif isinstance(st, _build.Unit):
             label += f" | scan, {st.real}"
         summary = _ptxas_summary(_build.build_log(st))
         report["ptxas"][label] = summary
@@ -567,14 +706,22 @@ def phase_build(report):
     for label, st in counted.items():
         sass = _build.count_sass(st)
         pipes = bound.sass_pipes(sass)
-        scan = isinstance(st, _build.Unit)
-        normals = 3 + int(scan_slice.jumps) if scan else 0
-        real = st.real if scan else "float"
-        report["parts"][label] = parts = bound.part_loads(sass, normals, real)
-        print(f"[1] SASS of one step ({label}; main body, by pipe): " + "; ".join(
-            f"{name[6:]} {pipes[name]}" for name in bound.PARTS))
+        unit = st if isinstance(st, _build.Unit) else _build.Unit(st)
+        scan = unit.draws == "threefry"
+        normals = 3 + int(unit.statics.jumps) if scan else 0
+        if unit.tk:
+            parts = bound.jvp_part_loads(sass, normals, unit.real)
+            names = bound.JVP_PARTS
+        else:
+            parts = bound.part_loads(sass, normals, unit.real)
+            names = bound.PARTS
+        report["parts"][label] = parts
+        tangents = f", {unit.tk} tangents" if unit.tk else ""
+        print(f"[1] SASS of one step ({label}{tangents}; main body, by "
+              f"pipe): " + "; ".join(f"{name[6:]} {pipes[name]}"
+                                     for name in names))
         if scan:
-            shares = bound.band_shares(real)
+            shares = bound.band_shares(unit.real)
             print(f"[1]   {label}: the draw runs erfinv band 0 for each of its "
                   f"{normals} normals; one normal through each band (SASS, by "
                   f"pipe), at its share of the normals: " + "; ".join(
@@ -1211,31 +1358,60 @@ def phase_modes(report):
     report["sim_err"] = err
 
     # The AD cross-check at the route's largest ad_num_paths, held to a CRN
-    # central difference of the same metric on the grid kernel.
+    # central difference of the same metric on the grid kernel: the JVP
+    # kernel, no plain AD pass.
     from monte_carlo_retirement_tpu_torch.config import Config
     from monte_carlo_retirement_tpu_torch.engine.sensitivity import (
+        DEFAULT_PARAMS,
+        ad_inputs,
         sensitivity_ad,
         sensitivity_fd,
     )
 
     cfg = Config(**raw)
-    ck.reset_counts()
+    # torch's forward AD imports torch._dynamo on its first use in a
+    # process (ad_inputs' jacfwd): timed apart, before the first AD call.
     t0 = time.perf_counter()
-    ad = sensitivity_ad(cfg, GRID_W, num_paths=AD_PATHS, seed=SEED,
-                        device="cuda")
-    torch.cuda.synchronize()
-    t_ad = time.perf_counter() - t0
-    ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
-    if plain.pop("ad") != 1 or any(plain.values()) or any(ran.values()):
-        raise AssertionError(f"[8f] AD pass: launches {ran}, plain {plain}")
+    import torch._dynamo  # noqa: F401
+
+    t_import = time.perf_counter() - t0
+    walls = []
+    report["ad_launches"] = {"grid": 0}
+    for _ in range(2):  # the process's first AD call, then a warm one
+        ck.reset_counts()
+        t0 = time.perf_counter()
+        ad = sensitivity_ad(cfg, GRID_W, num_paths=AD_PATHS, seed=SEED,
+                            device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+        if ran.pop("ad") < 1 or any(plain.values()) or any(ran.values()):
+            raise AssertionError(f"[8f] AD pass: launches "
+                                 f"{dict(ck.LAUNCHES)}, plain {plain}")
+        for name, count in ck.LAUNCHES.items():
+            launches[name] = launches.get(name, 0) + count
+            grid_path[name] = grid_path.get(name, 0) + count
+        report["ad_launches"]["grid"] += ck.LAUNCHES["ad"]
+    t_ad = walls[-1]
+    packed, fp_dot, st, draws = ad_inputs(cfg, GRID_W, DEFAULT_PARAMS, SEED,
+                                          torch.device("cuda"), "auto",
+                                          torch.float32)
+    kernel_ms = _time_ms(lambda: ck.simulate_jvp(packed, fp_dot, st,
+                                                 cfg.retirement_years, AD_PATHS),
+                         repeats=3)
     fd, ran = counted("8f", lambda: sensitivity_fd(
         cfg, GRID_W, num_paths=AD_PATHS, seed=SEED, rel_step=0.002,
         abs_step=0.0005, device="cuda"))
     fd = {r.param: r.d_mean_final for r in fd}
     grads = ad["d_mean_final"]
-    print(f"[8f] sensitivity_ad (torch.func.jacfwd through the plain loop, one "
-          f"AD pass) at {AD_PATHS:,} paths, W={GRID_W}: wall {t_ad:.2f} s; mean "
-          f"final balance {ad['mean_final_balance']:.2f}")
+    print(f"[8f] sensitivity_ad, twice (jvp_kernel: "
+          f"{report['ad_launches']['grid']} launches of {ck.JVP_TK} "
+          f"tangents, no plain AD pass) at "
+          f"{AD_PATHS:,} paths, W={GRID_W}: wall {t_ad:.3f} s (the process's "
+          f"first AD call {walls[0]:.3f} s, after importing torch._dynamo in "
+          f"{t_import:.3f} s), the kernel alone {kernel_ms:.3f} ms (CUDA "
+          f"events, min of 3); mean final balance "
+          f"{ad['mean_final_balance']:.2f}")
     for name, g in grads.items():
         print(f"[8f]   {name:<32} AD {g:>16.6g}  CRN FD {fd[name]:>16.6g}  "
               f"AD/FD {g / fd[name]:.6f}")
@@ -1465,12 +1641,11 @@ def phase_server(report):
           f"aiohttp.test_utils.TestServer on 127.0.0.1, requests from its "
           f"TestClient")
 
-    def counted(tag, need, ad=0):
-        """The launches since the last reset: no plain call but ``ad`` AD
-        passes, each kernel of ``need`` launched; they count as the server
-        path's."""
+    def counted(tag, need):
+        """The launches since the last reset: no plain call, each kernel of
+        ``need`` launched; they count as the server path's."""
         ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
-        if plain.pop("ad") != ad or any(plain.values()):
+        if any(plain.values()):
             raise AssertionError(f"[{tag}] plain versions ran: {plain}")
         if not all(ran[k] for k in need):
             raise AssertionError(f"[{tag}] a kernel was not launched: {ran}")
@@ -1580,7 +1755,8 @@ def phase_server(report):
         ck.reset_counts()
         blob, wall = await post(client, "/api/sensitivity", {
             **checks[1][2], "include_ad": True, "ad_num_paths": N_CHECK})
-        ran = counted("10d", ("grid",), ad=1)
+        ran = counted("10d", ("grid", "ad"))
+        report["ad_launches"]["server"] = ran["ad"]
         sens = json.loads(blob)
         SensitivityResponse.model_validate(sens)
         slopes = [r.get("ad_d_mean_final") for r in sens["rows"]]
@@ -1590,7 +1766,7 @@ def phase_server(report):
         print(f"[10d] /api/sensitivity include_ad, ad_num_paths {N_CHECK:,}: "
               f"200, ad_d_mean_final on all {len(slopes)} rows, "
               f"mean_final_balance_ad {sens['mean_final_balance_ad']}, "
-              f"{wall:.3f} s; launches {ran}, one AD pass")
+              f"{wall:.3f} s; launches {ran} (jvp_kernel, no plain AD pass)")
 
         # 10e: warm times over HTTP, capped and raw.
         walls = []
@@ -2717,7 +2893,7 @@ def _rel(a, b):
 def phase_scan_routes(report):
     """15: run_scenario_batch and sensitivity_ad on the scan (JAX's routes):
     the batch and the finite difference through the scan kernel, the AD pass
-    through the plain chain."""
+    through the JVP kernel on the scan's draws."""
     import numpy as np
     import torch
     from monte_carlo_retirement_tpu_torch.engine import _build
@@ -2726,6 +2902,8 @@ def phase_scan_routes(report):
         run_scenario_batch,
     )
     from monte_carlo_retirement_tpu_torch.engine.sensitivity import (
+        DEFAULT_PARAMS,
+        ad_inputs,
         sensitivity_ad,
         sensitivity_fd,
     )
@@ -2740,12 +2918,13 @@ def phase_scan_routes(report):
             raise AssertionError(f"[{tag}] not the scan kernel: {ran} {plain}")
         return ran["scan"]
 
-    def ad_only(tag):
-        """The AD pass ran the plain chain by name, counted as "ad"."""
+    def ad_kernel_only(tag):
+        """The AD pass ran the JVP kernel and nothing else; its launches."""
         ran, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
-        if (any(ran.values()) or plain["ad"] < 1
-                or any(v for k, v in plain.items() if k != "ad")):
-            raise AssertionError(f"[{tag}] not the AD pass's chain: {ran} {plain}")
+        if (ran["ad"] < 1 or any(plain.values())
+                or any(v for k, v in ran.items() if k != "ad")):
+            raise AssertionError(f"[{tag}] not the JVP kernel: {ran} {plain}")
+        return ran["ad"]
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -2824,22 +3003,25 @@ def phase_scan_routes(report):
     if not ok:
         raise AssertionError("[15a] a row is beyond max(3 sigma, 0.5) points")
 
-    # 15b: sensitivity_ad's scan route.
+    # 15b: sensitivity_ad's scan route, on the JVP kernel.
     cfg = _config(retirement_years=R_14B, monthly_expenses=EXPENSES_15_PARITY)
-    ck.reset_counts()
-    (card, t_card), (cpu, t_cpu) = (timed(lambda: sensitivity_ad(
+    parity = lambda dev: sensitivity_ad(
         cfg, W_15_PARITY, num_paths=N_14B, seed=SEED, device=dev,
-        backend="scan", dtype=torch.float64)) for dev in ("cuda", "cpu"))
-    ad_only("15b")
+        backend="scan", dtype=torch.float64)
+    ck.reset_counts()
+    card, t_card = timed(lambda: parity("cuda"))
+    ad_launches = [ad_kernel_only("15b")]
+    cpu, t_cpu = timed(lambda: parity("cpu"))
     names = list(cpu["d_mean_final"])
     worst = max(_rel(card["mean_final_balance"], cpu["mean_final_balance"]),
                 _rel([card["d_mean_final"][k] for k in names],
                      [cpu["d_mean_final"][k] for k in names]))
     out["ad_f64_rel"] = worst
     print(f"[15b] sensitivity_ad(backend='scan') float64, {N_14B:,} paths, "
-          f"R={R_14B}, W={W_15_PARITY}, {len(names)} parameters: card vs CPU "
-          f"value and gradients max rel {worst:.2e} (bound {PARITY_15B:.0e}); "
-          f"card {t_card:.1f} s, CPU {t_cpu:.1f} s")
+          f"R={R_14B}, W={W_15_PARITY}, {len(names)} parameters: card (jvp_kernel,"
+          f" {ad_launches[0]} launches) vs CPU (its plain version) value and "
+          f"gradients max rel {worst:.2e} (bound {PARITY_15B:.0e}); card "
+          f"{t_card:.2f} s, CPU {t_cpu:.1f} s")
     if not worst <= PARITY_15B:
         raise AssertionError("[15b] the card's scan AD differs from the CPU's")
 
@@ -2848,7 +3030,13 @@ def phase_scan_routes(report):
     ad, t_ad = timed(lambda: sensitivity_ad(cfg, GRID_W, num_paths=AD_PATHS,
                                             seed=SEED, device="cuda",
                                             backend="scan"))
-    ad_only("15b")
+    ad_launches.append(ad_kernel_only("15b"))
+    report["ad_launches"]["scan"] = sum(ad_launches)
+    packed, fp_dot, st, draws = ad_inputs(cfg, GRID_W, DEFAULT_PARAMS, SEED,
+                                          torch.device("cuda"), "scan",
+                                          torch.float32)
+    kernel_ms = _time_ms(lambda: ck.simulate_jvp(
+        packed, fp_dot, st, cfg.retirement_years, AD_PATHS, **draws), repeats=3)
     checked = ("monthly_expenses", "inv1_returns_mean")
     ck.reset_counts()
     fd, t_fd = timed(lambda: sensitivity_fd(
@@ -2857,13 +3045,15 @@ def phase_scan_routes(report):
     report["scan_launches"]["fd"] = scan_kernel_only("15b")
     fd = {r.param: r.d_mean_final for r in fd}
     grads = ad["d_mean_final"]
-    out.update(ad_scan_s=t_ad, fd_scan_s=t_fd,
+    out.update(ad_scan_s=t_ad, fd_scan_s=t_fd, ad_kernel_ms=kernel_ms,
                ad_over_fd={k: grads[k] / fd[k] for k in checked})
     print(f"[15b] sensitivity_ad(backend='scan') float32 at {AD_PATHS:,} paths, "
-          f"W={GRID_W}: wall {t_ad:.2f} s (phase 8f's pass on the grid "
-          f"kernel's stream: {report.get('ad_wall_s', float('nan')):.2f} s); "
-          f"mean final balance {ad['mean_final_balance']:.2f}; the scan's CRN "
-          f"central difference of {len(checked)} parameters {t_fd:.2f} s")
+          f"W={GRID_W} (jvp_kernel, {ad_launches[1]} launches): wall "
+          f"{t_ad:.3f} s, the kernel alone {kernel_ms:.3f} ms (CUDA events, "
+          f"min of 3; phase 8f's pass on the grid kernel's stream: wall "
+          f"{report.get('ad_wall_s', float('nan')):.3f} s); mean final "
+          f"balance {ad['mean_final_balance']:.2f}; the scan's CRN central "
+          f"difference of {len(checked)} parameters {t_fd:.2f} s")
     for name, g in grads.items():
         extra = (f"  scan FD {fd[name]:>16.6g}  AD/FD {g / fd[name]:.6f}"
                  if name in fd else "")
@@ -2873,6 +3063,155 @@ def phase_scan_routes(report):
             and grads["monthly_expenses"] < 0 < grads["inv1_returns_mean"]):
         raise AssertionError("[15b] scan AD gradients are not finite, signed "
                              "or within 5% of the scan's finite difference")
+
+
+def _rel_rows(got, want) -> float:
+    """Each row's largest |got - want| over that row's largest |want|, for
+    the worst row."""
+    scale = want.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+    return float(((got - want).abs() / scale).max())
+
+
+def phase_jvp(report):
+    """16: jvp_kernel against its plain version on the card (float64 to
+    round-off on both draw sources, config.json's and the all-on Statics and
+    the tie cases; float32 by gate (b)), then its times at phase 8f's shape
+    beside its bound, and in float32 one call of the plain version at that
+    shape, timed, the kernel held to it by gate (b)."""
+    import torch
+    from monte_carlo_retirement_tpu_torch.engine import bound
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine.cuda_kernel import F
+    from monte_carlo_retirement_tpu_torch.engine.sensitivity import (
+        DEFAULT_PARAMS,
+        ad_inputs,
+    )
+
+    dev = torch.device("cuda")
+    names = list(DEFAULT_PARAMS)
+    out = report["jvp"] = {"float64": [], "float32": []}
+    worst_abs = 0.0
+
+    def pair(cfg, w, params, backend, dtype, n, extra=(), row_offset=0):
+        """Kernel and plain version on the same block and directions."""
+        packed, fp_dot, st, draws = ad_inputs(cfg, w, params, SEED, dev,
+                                              backend, dtype)
+        if extra:
+            onehot = torch.zeros((len(extra), fp_dot.shape[1]), dtype=dtype,
+                                 device=dev)
+            onehot[range(len(extra)), list(extra)] = 1.0
+            fp_dot = torch.cat([fp_dot, onehot])
+        if draws:
+            draws = dict(draws, row_offset=row_offset)
+        R = cfg.retirement_years
+        k = ck.simulate_jvp(packed, fp_dot, st, R, n, **draws)
+        p = ck.simulate_jvp_plain(packed, fp_dot, st, R, n, **draws)
+        torch.cuda.synchronize()
+        return k, p, fp_dot.shape[0]
+
+    # 16a-b: float64, the scan's paths from an odd global row.
+    parity = [("config.json", _config(retirement_years=R_14B), W_14B, names,
+               ()),
+              ("all-on", _config(retirement_years=R_14B, **dict(ALL_ON)),
+               W_14B, names, ())]
+    parity += [(label, cfg, w, params, (F.GR_ADJ, F.GR_FLOOR, F.GR_CAP))
+               for label, cfg, w, params in _jvp_cases()[3:]]
+    t0 = time.perf_counter()
+    for label, cfg, w, params, extra in parity:
+        for backend, draws in (("auto", "philox"), ("scan", "threefry")):
+            offset = OFFSET_14B if backend == "scan" else 0
+            k, p, K = pair(cfg, w, params, backend, torch.float64, N_14B,
+                           extra, offset)
+            flags = torch.equal(k.success, p.success)
+            rel = max(_rel_rows(k.final_balance[None], p.final_balance[None]),
+                      _rel_rows(k.tangents, p.tangents))
+            worst_abs = max(worst_abs,
+                            float((k.final_balance - p.final_balance).abs().max()),
+                            float((k.tangents - p.tangents).abs().max()))
+            bits = float((k.tangents == p.tangents).double().mean())
+            ruined = k.success < 0.5
+            zero = bool(torch.all(k.tangents[:, ruined] == 0.0))
+            out["float64"].append({"case": label, "draws": draws, "K": K,
+                                   "flags_equal": flags, "rel": rel,
+                                   "bit_equal_tangents": bits,
+                                   "ruined": int(ruined.sum())})
+            print(f"[16a] float64 {label}, {draws} (W={w}, R="
+                  f"{cfg.retirement_years}, {N_14B:,} paths from global row "
+                  f"{offset}, {K} directions = {-(-K // ck.JVP_TK)} "
+                  f"launches): flags equal {flags}, finals and tangents max "
+                  f"rel {rel:.2e} of each direction's largest (bound "
+                  f"{PARITY_15B:.0e}), tangents bit-equal share {bits:.6f}; "
+                  f"{int(ruined.sum())} ruined paths, their tangents all 0: "
+                  f"{zero}")
+            if not (flags and rel <= PARITY_15B and zero):
+                raise AssertionError(f"[16a] jvp_kernel differs from its plain "
+                                     f"version: {label}, {draws}")
+    print(f"[16a] {2 * len(parity)} float64 checks in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # 16c: float32 at 2**16 paths, phase 8f's scenario, gate (b).
+    cfg = _config()
+
+    def gate_b(tag, what, k, p, n):
+        mismatch = float((k.success != p.success).double().mean())
+        means = [(k.final_balance.double().mean(), p.final_balance.double().mean())]
+        means += list(zip(k.tangents.double().mean(dim=1),
+                          p.tangents.double().mean(dim=1)))
+        rel = max(float((a - b).abs() / b.abs()) for a, b in means)
+        out["float32"].append({"draws": what, "paths": n,
+                               "flags_mismatch": mismatch, "means_rel": rel})
+        print(f"[{tag}] float32 {what}, config.json W={GRID_W}, {n:,} paths, "
+              f"{k.tangents.shape[0]} directions: flags mismatch "
+              f"{mismatch:.2e} (bound {FLAGS_16:.0e}), mean final and "
+              f"gradients max rel {rel:.2e} (bound {MEANS_16:.0e})")
+        if not (mismatch < FLAGS_16 and rel <= MEANS_16):
+            raise AssertionError(f"[{tag}] float32 jvp_kernel fails gate (b) "
+                                 f"on {what} at {n} paths")
+
+    for backend, draws in (("auto", "philox"), ("scan", "threefry")):
+        k, p, K = pair(cfg, GRID_W, names, backend, torch.float32, N_16_F32)
+        gate_b("16c", draws, k, p, N_16_F32)
+    report["jvp_err"] = worst_abs
+
+    # 16d: times at phase 8f's shape, beside the bound; in float32 the plain
+    # version once at that shape, the kernel held to it by gate (b).
+    times, bounds = report["jvp_times"], report["jvp_bounds"] = {}, {}
+    R, w = cfg.retirement_years, GRID_W
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        for backend, draws in (("auto", "philox"), ("scan", "threefry")):
+            packed, fp_dot, st, kw = ad_inputs(cfg, w, names, SEED, dev,
+                                               backend, dtype)
+            K, elem = fp_dot.shape[0], fp_dot.element_size()
+            run = lambda: ck.simulate_jvp(packed, fp_dot, st, R, AD_PATHS, **kw)
+            times[f"{draws}_{tag}"] = _time_ms(run, repeats=3)
+            work = bound.full_work(AD_PATHS, w, w + 12 * R,
+                                   acc_cap=w if kw else None)
+            bounds[f"{draws}_{tag}"] = _bound(
+                report, "jvp", work, elem * (AD_PATHS * (2 + K) + (K + 1)
+                                             * fp_dot.shape[1]),
+                f"jvp {draws} {tag}")
+            if tag == "f32":
+                k = run()
+                p, times[f"plain_{draws}_f32"] = _once_ms(
+                    lambda: ck.simulate_jvp_plain(packed, fp_dot, st, R,
+                                                  AD_PATHS, **kw))
+                gate_b("16d", draws, k, p, AD_PATHS)
+                del k, p
+                torch.cuda.empty_cache()
+    print(f"[16d] jvp_kernel at phase 8f's shape (config.json, W={w}, R={R}, "
+          f"{AD_PATHS:,} paths, {len(names)} directions; CUDA events, min of "
+          f"3) on {report['card']}; bound: the draws and the primal once, "
+          f"each direction once (op-count units of {len(names)} tangents):")
+    for draws in ("philox", "threefry"):
+        line = []
+        for tag in ("f32", "f64"):
+            ms, (b_ms, by) = times[f"{draws}_{tag}"], bounds[f"{draws}_{tag}"]
+            line.append(f"{tag} {ms:.3f} ms ({-(-len(names) // ck.JVP_TK)}"
+                        f" launches; bound {b_ms:.3f} ms, {by}, share "
+                        f"{b_ms / ms * 100:.1f}%)")
+        print(f"[16d]   {draws}: " + " | ".join(line) + f" | plain version, "
+              f"float32, one call at {AD_PATHS:,} paths: "
+              f"{times[f'plain_{draws}_f32']:.1f} ms")
 
 
 def main() -> int:
@@ -2894,7 +3233,7 @@ def main() -> int:
     for phase in (phase_build, phase_normals, phase_probe, phase_full,
                   phase_main_path, phase_timings, phase_grid, phase_modes,
                   phase_extensions, phase_server, phase_chunked, phase_mesh,
-                  phase_tools, phase_scan, phase_scan_routes):
+                  phase_tools, phase_scan, phase_scan_routes, phase_jvp):
         t0 = time.perf_counter()
         phase(report)
         print(f"--- {phase.__name__}: {time.perf_counter() - t0:.1f} s wall")
@@ -2954,6 +3293,23 @@ def main() -> int:
         "plain_ms_full": st["full_plain"], "bound_ms_full": sb["full_f32"][0],
         "bound_ms_full_float64": sb["full_f64"][0],
         "library_ms": None})
+    jt, jb, al = report["jvp_times"], report["jvp_bounds"], report["ad_launches"]
+    kernels.append({
+        "name": "jvp_kernel", "route": "cuda", "source": CU_SOURCE,
+        "replaces": JVP_REPLACES, "launches": sum(al.values()),
+        "launches_grid_path": al["grid"], "launches_server_path": al["server"],
+        "launches_scan_path": al["scan"],
+        "max_abs_err": report["jvp_err"],
+        "paths": AD_PATHS, "ms": jt["philox_f32"],
+        "ms_float64": jt["philox_f64"], "ms_scan": jt["threefry_f32"],
+        "ms_scan_float64": jt["threefry_f64"],
+        "plain_paths": AD_PATHS, "plain_ms": jt["plain_philox_f32"],
+        "plain_ms_scan": jt["plain_threefry_f32"],
+        "bound_ms": jb["philox_f32"][0], "bound_by": jb["philox_f32"][1],
+        "bound_ms_float64": jb["philox_f64"][0],
+        "bound_ms_scan": jb["threefry_f32"][0],
+        "bound_ms_scan_float64": jb["threefry_f64"][0],
+        "library_ms": None})
     print("max_abs_err: probe, grid and simulate = largest |success % "
           "difference| over every check of that kernel; full = largest "
           "|withdrawal-rate difference| (points) over every full check; "
@@ -2977,8 +3333,15 @@ def main() -> int:
           "|success % difference| vs the plain chain (14b), launches = the "
           "float64 main path (14c: launches_main_path) plus "
           "cross_backend_check (14d), scaling_demo (14e), the scan batch (15a) "
-          "and the scan's finite difference (15b); the AD pass (15b) runs the "
-          "plain chain, counted as ad")
+          "and the scan's finite difference (15b). The jvp row (JAX's "
+          "jit(jacfwd) through the scan, as one kernel): ms = float32 on the "
+          "grid kernel's Philox draws at phase 8f's shape (2^20 paths, 8 "
+          "directions), *_float64 and *_scan the other types and the scan's "
+          "draws (16d), plain_ms = its plain version (torch.func.jvp of the "
+          "chain), float32, one call at plain_paths, max_abs_err = largest "
+          "|final or tangent difference| of the float64 checks (16a-b), "
+          "launches = sensitivity_ad at 8f (launches_grid_path), the server's "
+          "include_ad (10d) and the scan route (15b)")
     print(json.dumps({"kernels": kernels}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {

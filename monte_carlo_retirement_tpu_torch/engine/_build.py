@@ -11,8 +11,10 @@ one executable per Statics: a small generated unit defines every flag of
 the Statics as a constant and includes the source, so each library holds
 one instance of each kernel, with every disabled feature compiled out. The
 Philox source in float32 holds the probe, grid and full kernels; the
-threefry source, in float32 or float64, the scan's two kernels. A new
-library costs one nvcc run of a few seconds on first use;
+threefry source, in float32 or float64, the scan's two kernels; a JVP
+unit (``tk`` tangents, either type, either draw source) the JVP kernel of
+``sensitivity_ad``. A new library costs one nvcc run of a few seconds on
+first use;
 :func:`build_many` starts several at once. The stream check
 (``normals.cu``) is one library of its own.
 
@@ -37,8 +39,8 @@ from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("philox.cuh", "threefry.cuh", "month_loop.cu", "normals.cu",
-           "op_count.cu")
+SOURCES = ("philox.cuh", "threefry.cuh", "dual.cuh", "month_loop.cu",
+           "normals.cu", "op_count.cu")
 # No --use_fast_math: division and sqrt stay IEEE. -Xptxas -v only prints
 # each kernel's registers and spills into the build log.
 NVCC_FLAGS = (
@@ -90,13 +92,16 @@ def source_hash() -> str:
 
 class Unit(NamedTuple):
     """One month-loop library: a Statics, the scalar type of its month step
-    ("float" or "double") and its draws ("philox": the probe, grid and full
-    kernels, float only; "threefry": the scan kernels). Wherever a library
-    is named, a bare Statics stands for ``Unit(statics)``."""
+    ("float" or "double"), its draws ("philox": the probe, grid and full
+    kernels, float only; "threefry": the scan kernels) and the tangents its
+    JVP kernel carries (``tk`` > 0: that kernel alone, in either type on
+    either draw source). Wherever a library is named, a bare Statics stands
+    for ``Unit(statics)``."""
 
     statics: object
     real: str = "float"
     draws: str = "philox"
+    tk: int = 0
 
 
 def _unit(lib) -> Optional[Unit]:
@@ -106,17 +111,23 @@ def _unit(lib) -> Optional[Unit]:
 
 
 def statics_unit(statics, source: str = "month_loop.cu", real: str = "float",
-                 draws: str = "philox") -> str:
+                 draws: str = "philox", tk: int = 0) -> str:
     """The generated translation unit of one Statics: each flag as a
     constant, then ``source`` (the kernels, or the op-count unit). A
     stream's kind is one int: bit 0 CPI-indexed, bit 1 duration-capped.
-    The threefry draws add ``MCRT_THREEFRY``, float64 ``MCRT_REAL_DOUBLE``;
-    the Philox float32 unit is the flags alone."""
+    The threefry draws add ``MCRT_THREEFRY``, float64 ``MCRT_REAL_DOUBLE``,
+    a JVP unit ``MCRT_JVP_TK``; the Philox float32 unit is the flags
+    alone."""
     if len(statics.stream_indexed) != len(statics.stream_capped):
         raise ValueError("stream_indexed and stream_capped differ in length")
-    if (real, draws) not in (("float", "philox"), ("float", "threefry"),
-                             ("double", "threefry")):
+    if real not in ("float", "double") or draws not in ("philox", "threefry"):
         raise ValueError(f"no month-loop library draws {draws!r} in {real!r}")
+    if int(tk) < 0:
+        raise ValueError(f"a JVP unit carries tk >= 1 tangents, got {tk}")
+    if (real, draws, int(tk) > 0) == ("double", "philox", False):
+        raise ValueError(f"no month-loop library draws {draws!r} in {real!r}: "
+                         "the Philox kernels run in float32, float64 Philox "
+                         "draws only feed the JVP kernel (tk >= 1)")
     kinds = ", ".join(
         str(int(bool(i)) | 2 * int(bool(c)))
         for i, c in zip(statics.stream_indexed, statics.stream_capped)
@@ -141,12 +152,14 @@ def statics_unit(statics, source: str = "month_loop.cu", real: str = "float",
         lines.append("#define MCRT_THREEFRY 1")
     if real == "double":
         lines.append("#define MCRT_REAL_DOUBLE 1")
+    if tk:
+        lines.append(f"#define MCRT_JVP_TK {int(tk)}")
     lines.append(f'#include "{source}"')
     return "\n".join(lines) + "\n"
 
 
 def _unit_text(lib: Unit, source: str) -> str:
-    return statics_unit(lib.statics, source, lib.real, lib.draws)
+    return statics_unit(lib.statics, source, lib.real, lib.draws, lib.tk)
 
 
 def _unit_flags(lib: Unit) -> Tuple[str, ...]:
@@ -256,6 +269,9 @@ def _bind(lib: ctypes.CDLL, unit: Optional[Unit]) -> None:
     if unit is None:
         entries = {"mcrt_normals": [vp, i, vp, vp, vp],
                    "mcrt_threefry": [vp, i, vp, vp, vp, vp]}
+    elif unit.tk:
+        entries = {"mcrt_jvp": [vp, vp, vp, vp, i, i, i, i, i, i, ll, vp, vp,
+                                vp, vp]}
     elif unit.draws == "threefry":
         entries = {
             "mcrt_scan_rows": [vp, vp, vp, i, i, i, i, i, i, i, i, i, i, ll,

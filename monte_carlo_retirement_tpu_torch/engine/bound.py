@@ -1,9 +1,10 @@
 """The least time the card could take for a month-loop launch.
 
 A launch's work is counted in parts (``cuda_kernel.tile_work`` for the
-probe, grid and scan-rows kernels, :func:`full_work` for the full and
-scan-full kernels): draws (path-months), parameter applications of the
-grid's rows, accumulation months and retirement months (row-path-months).
+probe, grid and scan-rows kernels, :func:`full_work` for the full,
+scan-full and JVP kernels): draws
+(path-months), parameter applications of the grid's rows, accumulation
+months and retirement months (row-path-months).
 Each part is priced from the SASS of its one-step kernel in
 ``csrc/op_count.cu`` (``_build.count_sass``; for the scan kernels, the
 op-count unit of their scalar type and threefry draws):
@@ -32,6 +33,14 @@ op-count unit of their scalar type and threefry draws):
     at the share of the normals that take it (:func:`band_shares`), its
     count less band 0's; warps that split between bands run both, which is
     the kernel's cost, not the draw's work;
+  * the JVP's parts come from a JVP op-count unit of the launch's scalar
+    type and draws, every value but the draws a Dual (``count_jvp_*``,
+    :func:`jvp_part_loads`), with as many tangents as the function has
+    directions: one pass of :func:`full_work` then prices what the
+    function needs, the draws and the primal once and each direction
+    once, however many launches the kernel splits the directions into
+    (each launch redoes the draws and the primal: the kernel's cost, not
+    the function's work);
   * a launch's loads are the sums of its parts' loads times their counts,
     and it takes at least its busiest load: the pipes run side by side.
 
@@ -68,6 +77,8 @@ _SKIP = {"NOP", "EXIT", "BRA", "BRX", "JMP", "JMX", "CALL", "RET", "BSSY",
 PARTS = ("count_draw_probe", "count_draw_grid", "count_growth", "count_accum",
          "count_accum_plain", "count_retire", "count_retire_plain",
          "count_retire_track", "count_retire_track_plain")
+JVP_PARTS = ("count_jvp_draw", "count_jvp_accum", "count_jvp_accum_plain",
+             "count_jvp_retire", "count_jvp_retire_plain")
 
 # One normal through each band of XLA's erfinv (csrc/op_count.cu), and the
 # w = -log1p(-u^2) at which each band after the first begins, by the scan
@@ -148,18 +159,16 @@ def band_shares(real: str) -> Tuple[float, ...]:
     return tuple(a - b for a, b in zip(tails, tails[1:]))
 
 
-def part_loads(sass: str, normals: int = 0,
-               real: str = "float") -> Dict[str, Dict[str, float]]:
-    """The loads of each part of the month loop, the yearly code charged
-    once in 12 months; a scan unit's draw of ``normals`` threefry normals
-    gains its colder erfinv bands at their shares."""
+def _named_loads(sass: str, names, normals: int, real: str):
+    """Each named kernel's loads, and the colder erfinv bands of a draw of
+    ``normals`` threefry normals at their shares (zero without normals)."""
     pipes = sass_pipes(sass)
     bands = BANDS[:len(ERFINV_EDGES[real]) + 1] if normals else ()
-    missing = [p for p in PARTS + bands if p not in pipes]
+    missing = [p for p in tuple(names) + bands if p not in pipes]
     if missing:
         raise ValueError(f"op-count kernels missing from the SASS: {missing}")
-    c = {name: loads(pipes[name]) for name in PARTS + bands}
-    cold = {k: 0.0 for k in c["count_draw_probe"]}
+    c = {name: loads(pipes[name]) for name in tuple(names) + bands}
+    cold = {k: 0.0 for k in c[names[0]]}
     for name, share in zip(bands[1:], band_shares(real)[1:]):
         for k in cold:
             cold[k] += normals * share * (c[name][k] - c[bands[0]][k])
@@ -168,6 +177,15 @@ def part_loads(sass: str, normals: int = 0,
         return {k: c[plain][k] + max(0.0, c[general][k] - c[plain][k]) / 12.0
                 for k in c[plain]}
 
+    return c, cold, month
+
+
+def part_loads(sass: str, normals: int = 0,
+               real: str = "float") -> Dict[str, Dict[str, float]]:
+    """The loads of each part of the month loop, the yearly code charged
+    once in 12 months; a scan unit's draw of ``normals`` threefry normals
+    gains its colder erfinv bands at their shares."""
+    c, cold, month = _named_loads(sass, PARTS, normals, real)
     return {
         "draw_probe": {k: v + cold[k] for k, v in c["count_draw_probe"].items()},
         "draw_grid": {k: v + cold[k] for k, v in c["count_draw_grid"].items()},
@@ -175,6 +193,19 @@ def part_loads(sass: str, normals: int = 0,
         "accum": month("count_accum", "count_accum_plain"),
         "retire": month("count_retire", "count_retire_plain"),
         "retire_track": month("count_retire_track", "count_retire_track_plain"),
+    }
+
+
+def jvp_part_loads(sass: str, normals: int = 0,
+                   real: str = "float") -> Dict[str, Dict[str, float]]:
+    """The JVP kernel's parts from a JVP unit's SASS: a draw with its Dual
+    growth factors (threefry: plus the colder bands), a Dual accumulation
+    month and a Dual retirement month, the yearly code once in 12."""
+    c, cold, month = _named_loads(sass, JVP_PARTS, normals, real)
+    return {
+        "draw": {k: v + cold[k] for k, v in c["count_jvp_draw"].items()},
+        "accum": month("count_jvp_accum", "count_jvp_accum_plain"),
+        "retire": month("count_jvp_retire", "count_jvp_retire_plain"),
     }
 
 
@@ -194,8 +225,10 @@ def bound_ms(kind: str, work: Dict[str, int],
     """(bound in ms, "operations" or "bytes") of a ``kind`` launch
     ("probe", "grid" or "full"; the scan-rows kernel is "probe" with one
     shared parameter block and "grid" with one per row, the scan-full
-    kernel "full") doing ``work`` and writing ``out_bytes``; ``parts``
-    from :func:`part_loads` of the launch's own library."""
+    kernel "full"; "jvp" the JVP, its ``work`` from :func:`full_work`)
+    doing ``work`` and writing ``out_bytes``; ``parts`` from
+    :func:`part_loads` of the launch's own library (for "jvp",
+    :func:`jvp_part_loads` of a JVP unit with one tangent per direction)."""
     if kind == "probe":
         terms = [("draw_probe", work["draws"]), ("accum", work["accum"]),
                  ("retire", work["retire"])]
@@ -206,10 +239,13 @@ def bound_ms(kind: str, work: Dict[str, int],
     elif kind == "full":
         terms = [("draw_probe", work["draws"]), ("accum", work["accum"]),
                  ("retire_track", work["retire"])]
+    elif kind == "jvp":
+        terms = [("draw", work["draws"]), ("accum", work["accum"]),
+                 ("retire", work["retire"])]
     else:
         raise ValueError(f"unknown launch kind {kind!r}")
     total = {k: sum(count * parts[part][k] for part, count in terms)
-             for k in parts["draw_probe"]}
+             for k in parts[terms[0][0]]}
     ops_ms = max(total.values()) / (sm_count * clock_hz) * 1e3
     bytes_ms = out_bytes / MEMORY_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")

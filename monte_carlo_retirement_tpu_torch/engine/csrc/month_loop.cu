@@ -63,6 +63,21 @@
 //     flag and final balance;
 //   * scan_full_kernel: full_kernel's one thread per path -> the tracked
 //     fields of simulate_paths(traj_len > 0).
+// The JVP kernel (a library built with MCRT_JVP_TK, the tangents it carries;
+// float32 or float64, Philox or threefry draws) replaces the compiled form
+// of JAX's forward-mode AD through that scan, jit(jacfwd(metric))
+// (monte_carlo_retirement_tpu/engine/sensitivity.py:476-495), which XLA
+// fuses into one device loop carrying the tangents beside the carry:
+//   * jvp_kernel: full_kernel's one thread per path over one row, every
+//     value of the month step a Dual (dual.cuh) of MCRT_JVP_TK tangents ->
+//     per-path success, final balance and its tangents along MCRT_JVP_TK
+//     directions of the parameter block (sensitivity_ad's mean and
+//     gradient, reduced on the host).
+//   It is bound by issue slots too: a tangent costs about one more multiply
+//   or add per primal operation (an IEEE division per quotient), so a month
+//   costs about 1 + TK forward months. The carry's tangents stay in
+//   registers; the Scenario's (TK per parameter) sit in shared memory and
+//   are read where a month step uses them.
 // Every month step is templated on its scalar type and takes its draws from
 // a compile-time source: Philox (float32) for the four kernels above, JAX's
 // threefry (threefry.cuh; float32 or float64) for the scan. The scan adds
@@ -79,7 +94,8 @@
 // glide, guardrails, crashes, longevity) as a -D constant, so every disabled
 // branch compiles out, as on the TPU, and a library holds exactly one
 // instance of each kernel: the Philox kernels in float32, or the scan's in
-// float32 (MCRT_THREEFRY) or float64 (MCRT_THREEFRY and MCRT_REAL_DOUBLE).
+// float32 (MCRT_THREEFRY) or float64 (MCRT_THREEFRY and MCRT_REAL_DOUBLE),
+// or (MCRT_JVP_TK) the JVP kernel alone, on either draw source and type.
 //
 // Grid scenarios read their row of the (K, F.NUM + 5*S) parameter block once,
 // into registers (the TPU kernel measured per-use parameter reads in the loop
@@ -111,8 +127,11 @@
 #ifndef MCRT_REAL_DOUBLE
 #define MCRT_REAL_DOUBLE 0
 #endif
-#if MCRT_REAL_DOUBLE && !MCRT_THREEFRY
-#error "the Philox kernels run in float32; float64 is the scan's"
+#ifndef MCRT_JVP_TK
+#define MCRT_JVP_TK 0
+#endif
+#if MCRT_REAL_DOUBLE && !MCRT_THREEFRY && !MCRT_JVP_TK
+#error "the Philox kernels run in float32; float64 is the scan's and the JVP's"
 #endif
 
 namespace {
@@ -152,15 +171,29 @@ __device__ __forceinline__ float r_ceil(float x) { return ceilf(x); }
 __device__ __forceinline__ double r_ceil(double x) { return ceil(x); }
 __device__ __forceinline__ float r_abs(float x) { return fabsf(x); }
 __device__ __forceinline__ double r_abs(double x) { return fabs(x); }
-__device__ __forceinline__ float r_min(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ double r_min(double a, double b) { return fmin(a, b); }
-__device__ __forceinline__ float r_max(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ double r_max(double a, double b) { return fmax(a, b); }
+// The clamps and extrema, one helper per torch op of the plain chain, so
+// that the Dual overloads (dual.cuh) can follow each op's tie rule: the
+// scalar forms are one fmin/fmax.
+//   r_clamp_min(x, lo)  torch.clamp(x, min=lo), lo a constant of the
+//                       primal type (a Dual bound does not compile)
+//   r_clamp_max(x, hi)  torch.clamp(x, max=hi), the same
+//   r_maximum(a, b)     torch.maximum(a, b)
+//   r_minimum(a, b)     torch.minimum(a, b)
+__device__ __forceinline__ float r_clamp_min(float x, float lo) { return fmaxf(x, lo); }
+__device__ __forceinline__ double r_clamp_min(double x, double lo) { return fmax(x, lo); }
+__device__ __forceinline__ float r_clamp_max(float x, float hi) { return fminf(x, hi); }
+__device__ __forceinline__ double r_clamp_max(double x, double hi) { return fmin(x, hi); }
+__device__ __forceinline__ float r_maximum(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double r_maximum(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float r_minimum(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double r_minimum(double a, double b) { return fmin(a, b); }
 // Rounded on their own: never contracted into a multiply-add.
 __device__ __forceinline__ float r_mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double r_mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float r_sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double r_sub_rn(double a, double b) { return __dsub_rn(a, b); }
+#include "dual.cuh"  // Dual<R, K> and its overloads of the helpers above
+
 template <class T>
 __device__ __forceinline__ T r_inf();
 template <>
@@ -416,9 +449,10 @@ struct ScanPaths {
 // ---------------------------------------------------------------------------
 // Monthly gross factors (g1, gi, g2) of one path from its draw
 // (pallas_kernel.py:745-771); with crashes, the compensated jump folds into
-// the exponents (draw_jump, :507-528).
-template <class T>
-__device__ __forceinline__ void growth(const Scenario<T>& sc, const Shock<T>& s,
+// the exponents (draw_jump, :507-528). The draw is of the scalar type (Z =
+// T), or of its primal type under a Dual T (a draw carries no tangent).
+template <class T, class Z>
+__device__ __forceinline__ void growth(const Scenario<T>& sc, const Shock<Z>& s,
                                        T& g1, T& gi, T& g2) {
   const T z_inf = sc.rho * s.z_eq + sc.rho_c * s.z_ind;
   if constexpr (kJumps) {
@@ -443,7 +477,7 @@ __device__ __forceinline__ T gompertz_remaining_months(T u, T g0, T b12, T cap,
   const T log_u = r_log(u);
   const T t = b12 * (g_ret > T(0) ? g_ret + r_log(r_exp(-g_ret) - log_u)
                                   : r_log1p(-log_u * r_exp(g_ret)));
-  const T d = r_min(t, r_max(T(0), cap - wf));
+  const T d = r_minimum(t, r_clamp_min(cap - wf, 0));
   return b12 > T(0) ? d : r_inf<T>();
 }
 
@@ -452,7 +486,7 @@ __device__ __forceinline__ T gompertz_remaining_months(T u, T g0, T b12, T cap,
 template <bool USE, class T>
 __device__ __forceinline__ void profile(T b, T c, T rate, T& eff, T& nf,
                                         T& nc) {
-  constexpr T kEps = Num<T>::eps;
+  constexpr auto kEps = Num<T>::eps;
   if (!USE) {
     eff = T(0);
     nf = T(1);
@@ -460,7 +494,7 @@ __device__ __forceinline__ void profile(T b, T c, T rate, T& eff, T& nf,
     return;
   }
   const T safe = b > kEps ? b : T(1);
-  const T gf = r_max(T(0), b - c) / safe;
+  const T gf = r_clamp_min(b - c, 0) / safe;
   eff = gf * rate;
   nf = T(1) - eff;
   nc = b > kEps ? b * nf : T(0);
@@ -471,7 +505,7 @@ template <class T>
 __device__ __forceinline__ void rebalance_lite(T& b1, T& c1, T& b2, T& c2,
                                                T eff1, T eff2, T a1,
                                                bool extra_noop) {
-  constexpr T kEps = Num<T>::eps;
+  constexpr auto kEps = Num<T>::eps;
   const T total = b1 + b2;
   const T drift1 = b1 - total * a1;
   const T adrift = r_abs(drift1);
@@ -481,8 +515,8 @@ __device__ __forceinline__ void rebalance_lite(T& b1, T& c1, T& b2, T& c2,
   const T basis_s = sell1 ? c1 : c2;
   const T eff_s = sell1 ? eff1 : eff2;
   const T alloc_s = sell1 ? a1 : T(1) - a1;
-  const T denom = r_max(kEps, T(1) - alloc_s * eff_s);
-  const T gross_s = r_min(bal_s, adrift / denom);
+  const T denom = r_clamp_min(T(1) - alloc_s * eff_s, kEps);
+  const T gross_s = r_minimum(bal_s, adrift / denom);
   const T frac_s = gross_s / (bal_s > kEps ? bal_s : T(1));
   const T net_p = gross_s * (T(1) - eff_s);
   const T new_sb = bal_s - gross_s;
@@ -508,10 +542,10 @@ __device__ __forceinline__ T sell_pro_rata(T& b1, T& c1, T& b2, T& c2,
                                            T target, T nc1, T nc2, T nf1,
                                            T nf2, bool on, T& gross1,
                                            T& gross2) {
-  constexpr T kEps = Num<T>::eps;
+  constexpr auto kEps = Num<T>::eps;
   const T tnc = nc1 + nc2;
   const T frac =
-      r_min(T(1), target >= tnc ? T(1) : target / r_max(tnc, kEps)) *
+      r_clamp_max(target >= tnc ? T(1) : target / r_clamp_min(tnc, kEps), 1) *
       (on ? T(1) : T(0));
   const T keep = T(1) - frac;
   gross1 = nc1 > T(0) ? b1 * frac : T(0);
@@ -534,14 +568,14 @@ template <class T>
 __device__ __forceinline__ bool annual_tax(const Scenario<T>& sc, T& b1, T& c1,
                                            T& b2, T& c2, T g1a, T g2a, T a1) {
   T due1 = T(0), due2 = T(0);
-  if constexpr (kBill1) due1 = r_max(T(0), g1a) * sc.ann1;
-  if constexpr (kBill2) due2 = r_max(T(0), g2a) * sc.ann2;
+  if constexpr (kBill1) due1 = r_clamp_min(g1a, 0) * sc.ann1;
+  if constexpr (kBill2) due2 = r_clamp_min(g2a, 0) * sc.ann2;
   const T total_due = due1 + due2;
   T eff1, nf1, nc1, eff2, nf2, nc2;
   profile<kUseReal1>(b1, c1, sc.r1, eff1, nf1, nc1);
   profile<kUseReal2>(b2, c2, sc.r2, eff2, nf2, nc2);
   const T tnc = nc1 + nc2;
-  const T payment = r_min(total_due, tnc);
+  const T payment = r_minimum(total_due, tnc);
   const T tol = Num<T>::eps + Num<T>::fail_rtol * (total_due + tnc);
   T gross1, gross2;
   sell_pro_rata(b1, c1, b2, c2, total_due, nc1, nc2, nf1, nf2,
@@ -616,21 +650,22 @@ __device__ __forceinline__ Carry<T> start_path(const Scenario<T>& sc, int w,
 #pragma unroll
   for (int s = 0; s < kNS; ++s) {
     c.stream_start[s] =
-        r_max(T(0), r_ceil(r_max(T(0), sc.from_t0[s] - wf) - Num<T>::eps));
+        r_clamp_min(r_ceil(r_clamp_min(sc.from_t0[s] - wf, 0) - Num<T>::eps), 0);
     c.fixed[s] = T(-1);
   }
   // Longevity: one uniform per path -> remaining months at this row's own
-  // retirement date.
+  // retirement date. Only ever compared, so a Dual T takes the primal alone.
   c.d_mort = T(0);
   if constexpr (kMortality) {
-    c.d_mort = gompertz_remaining_months(static_cast<T>(mortality_uniform(key)),
-                                         sc.mort_g0, sc.mort_b12, sc.mort_cap,
-                                         wf);
+    using P = typename Primal<T>::type;
+    c.d_mort = T(gompertz_remaining_months(
+        static_cast<P>(mortality_uniform(key)), primal(sc.mort_g0),
+        primal(sc.mort_b12), primal(sc.mort_cap), primal(wf)));
   }
   // Glide (pallas_kernel.py:559-566): the target moves linearly to alloc1_f
   // over the W working months; retirement holds alloc1_f.
   c.glide_scale = T(0);
-  if constexpr (kGlide) c.glide_scale = (sc.alloc1_f - sc.alloc1) / r_max(wf, T(1));
+  if constexpr (kGlide) c.glide_scale = (sc.alloc1_f - sc.alloc1) / r_clamp_min(wf, 1);
 
   c.b1 = sc.init_bal * sc.alloc1;
   c.b2 = sc.init_bal - c.b1;
@@ -699,7 +734,7 @@ __device__ __forceinline__ void retire_month(const Scenario<T>& sc, Carry<T>& c,
                                              int m, int w, int t_end,
                                              T g1, T gi, T g2,
                                              const Records<T>& rec) {
-  constexpr T kEps = Num<T>::eps;
+  constexpr auto kEps = Num<T>::eps;
   const bool alive = c.alive_f > T(0.5);
   const T alive0_f = c.alive_f;
   const int k = m - w;
@@ -718,10 +753,10 @@ __device__ __forceinline__ void retire_month(const Scenario<T>& sc, Carry<T>& c,
     // ret_idx is uniform across the warp (one row per warp).
     if (ret_idx % kMonths == 0 && ret_idx > 0 && alive) {
       const T planned = T(12) * sc.expenses * c.smult * price0;
-      const T wr_now = planned / r_max(c.b1 + c.b2, kEps);
+      const T wr_now = planned / r_clamp_min(c.b1 + c.b2, kEps);
       T s_new = wr_now > sc.gr_up ? c.smult * (T(1) - sc.gr_adj) : c.smult;
       s_new = wr_now < sc.gr_lo ? c.smult * (T(1) + sc.gr_adj) : s_new;
-      c.smult = r_min(r_max(s_new, sc.gr_floor), sc.gr_cap);
+      c.smult = r_minimum(r_maximum(s_new, sc.gr_floor), sc.gr_cap);
     }
     expenses = sc.expenses * c.smult;
   }
@@ -736,7 +771,7 @@ __device__ __forceinline__ void retire_month(const Scenario<T>& sc, Carry<T>& c,
     // on. nvcc's fmaf(expenses, price0, -income) left the product's
     // round-off, up to half an ulp of expenses x price (> kEps), and ruined
     // every such path (the edge sweep's zero-balance, pension-funded case).
-    need = r_max(T(0), r_sub_rn(need, net_income));
+    need = r_clamp_min(r_sub_rn(need, net_income), 0);
   }
   bool living = true;
   if constexpr (kMortality) {  // spending ends with the owner (:942-948)
@@ -773,7 +808,7 @@ __device__ __forceinline__ void retire_month(const Scenario<T>& sc, Carry<T>& c,
   if (TRACK) {
     const T gw = gross1 + gross2;
     c.yg += gw;
-    c.yr += gw / r_max(price0, kEps);
+    c.yr += gw / r_clamp_min(price0, kEps);
   }
 
   // monthly rebalance (the proportional sale left the profiles valid)
@@ -823,12 +858,12 @@ __device__ __forceinline__ void retire_month(const Scenario<T>& sc, Carry<T>& c,
           (c.ytr < static_cast<T>(k) + T(0.5));
       const bool alive_now = c.alive_f > T(0.5);
       if (alive_now || died_this_year)
-        rec.traj[slot * n + p] = alive_now ? total2 : r_max(T(0), total2);
+        rec.traj[slot * n + p] = alive_now ? total2 : r_clamp_min(total2, 0);
       rec.price[slot * n + p] = c.infl;
       // withdrawal-rate observations only for fully-lived years
       if ((alive0_f > T(0.5)) && !dies_regular && living)
         rec.wr[yslot * n + p] = c.start > kEps
-            ? c.yr * c.infl_ret / r_max(c.start, kEps) * T(100) : T(0);
+            ? c.yr * c.infl_ret / r_clamp_min(c.start, kEps) * T(100) : T(0);
     }
   }
 }
@@ -948,7 +983,7 @@ __device__ __forceinline__ void tile_body(
   if (has_row && p < n) {
     const size_t idx = static_cast<size_t>(row) * n + p;
     success[idx] = c.alive_f;
-    final_bal[idx] = r_max(T(0), c.b1 + c.b2);
+    final_bal[idx] = r_clamp_min(c.b1 + c.b2, 0);
     alive_i = c.alive_f > T(0.5);
   }
   // Survivors: one ballot per warp (= per row of the block), one atomic per
@@ -1009,7 +1044,7 @@ __device__ __forceinline__ void full_body(const T* __restrict__ fp,
 
   // vecs rows: success, final, start, ytr, fy_g, fy_r, infl_ret
   vecs[p] = c.alive_f;
-  vecs[static_cast<size_t>(n) + p] = r_max(T(0), c.b1 + c.b2);
+  vecs[static_cast<size_t>(n) + p] = r_clamp_min(c.b1 + c.b2, 0);
   vecs[2 * static_cast<size_t>(n) + p] = c.start;
   vecs[3 * static_cast<size_t>(n) + p] =
       c.alive_f > T(0.5) ? r_nan<T>() : c.ytr / static_cast<T>(kMonths);
@@ -1018,7 +1053,104 @@ __device__ __forceinline__ void full_body(const T* __restrict__ fp,
   vecs[6 * static_cast<size_t>(n) + p] = c.infl_ret;
 }
 
-#if !MCRT_THREEFRY
+#if MCRT_JVP_TK
+// ---------------------------------------------------------------------------
+// The JVP kernel (Real: float32 or float64; Philox or threefry draws)
+// ---------------------------------------------------------------------------
+// One row's month loop carrying kTK tangents of every value with respect to
+// its parameter block fp (F.NUM + 5*S values): the compiled form of JAX's
+// jit(jacfwd(metric)) through simulate_paths (monte_carlo_retirement_tpu/
+// engine/sensitivity.py:476-495), which the port's sensitivity_ad reduces to
+// the mean final balance and its gradient. One thread per path, as
+// full_kernel: the carry and its tangents in registers, the draws made in
+// the thread. The block stages the parameters and their kTK tangent
+// directions (fp_dot, kTK x P) in shared memory as Duals, and each month
+// step reads the fields it uses from there, never holding the Scenario's
+// tangents in registers.
+constexpr int kTK = MCRT_JVP_TK;
+constexpr int kJvpThreads = 128;
+using DReal = Dual<Real, kTK>;
+
+// Loads after this point are made after it: the month loop rereads the
+// Scenario from shared memory each month instead of hoisting it out.
+__device__ __forceinline__ void reread_memory() { asm volatile("" ::: "memory"); }
+
+// A path-month's draw in the primal type: the Philox stream's float32
+// values widened, as the plain chain takes them (engine/kernel.py draw:
+// ``.to(dtype)``), or the scan's own.
+template <class Z>
+__device__ __forceinline__ Shock<Real> real_shock(const Shock<Z>& z) {
+  Shock<Real> s;
+  s.z_eq = static_cast<Real>(z.z_eq);
+  s.z_ind = static_cast<Real>(z.z_ind);
+  s.z_prem = static_cast<Real>(z.z_prem);
+  if constexpr (kJumps) {
+    s.u = static_cast<Real>(z.u);
+    s.z_j = static_cast<Real>(z.z_j);
+  }
+  return s;
+}
+
+template <class Paths>
+__device__ __forceinline__ void jvp_body(const Real* __restrict__ fp,
+                                         const Real* __restrict__ fp_dot,
+                                         const int* __restrict__ ip, int n,
+                                         const Paths& paths, int acc_cap,
+                                         Real* __restrict__ success,
+                                         Real* __restrict__ final_bal,
+                                         Real* __restrict__ tangents) {
+  __shared__ DReal params[kRow];
+  for (int i = threadIdx.x; i < kRow; i += blockDim.x) {
+    DReal d(fp[i]);
+#pragma unroll
+    for (int k = 0; k < kTK; ++k) d.t[k] = fp_dot[k * kRow + i];
+    params[i] = d;
+  }
+  __syncthreads();
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const int w = ip[I_W], t_end = ip[I_T_END];
+  const int w_acc = kThreefry ? min(w, acc_cap) : w;
+  const auto key = paths.path(p);
+  Carry<DReal> c = start_path(Scenario<DReal>(params), w, key);
+  DReal g1, gi, g2;
+  for (int m = 1; m <= w_acc; ++m) {
+    reread_memory();
+    const Scenario<DReal> sc(params);
+    growth(sc, real_shock(month_shock(m, key)), g1, gi, g2);
+    accum_month(sc, c, m, g1, gi, g2);
+  }
+  snapshot(c);
+  for (int m = w + 1; m <= t_end; ++m) {
+    reread_memory();
+    const Scenario<DReal> sc(params);
+    growth(sc, real_shock(month_shock(m, key)), g1, gi, g2);
+    retire_month<false>(sc, c, m, w, t_end, g1, gi, g2, Records<DReal>{});
+  }
+  const DReal fin = r_clamp_min(c.b1 + c.b2, 0);
+  success[p] = c.alive_f.v;
+  final_bal[p] = fin.v;
+#pragma unroll
+  for (int k = 0; k < kTK; ++k) tangents[static_cast<size_t>(k) * n + p] = fin.t[k];
+}
+
+// ip: one row [W, t_end, seed, block_offset]; keys: the scan's (T + 1, 6)
+// key table (threefry draws) or unused (Philox); acc_cap: the scan's
+// accumulation cap (threefry only).
+__global__ void __launch_bounds__(kJvpThreads)
+    jvp_kernel(const Real* __restrict__ fp, const Real* __restrict__ fp_dot,
+               const int* __restrict__ ip, const uint32_t* __restrict__ keys,
+               int n, int acc_cap, long long row_offset,
+               Real* __restrict__ success, Real* __restrict__ final_bal,
+               Real* __restrict__ tangents) {
+#if MCRT_THREEFRY
+  const ScanPaths<Real> paths{keys, row_offset};
+#else
+  const PhiloxPaths paths{static_cast<uint32_t>(ip[I_SEED]), ip[I_BLOCK_OFF]};
+#endif
+  jvp_body(fp, fp_dot, ip, n, paths, acc_cap, success, final_bal, tangents);
+}
+#elif !MCRT_THREEFRY
 // ---------------------------------------------------------------------------
 // The Philox kernels (float32)
 // ---------------------------------------------------------------------------
@@ -1106,7 +1238,7 @@ int set_smem(Kernel kernel, int smem_bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
 }
 
-#if !MCRT_THREEFRY
+#if !MCRT_THREEFRY && !MCRT_JVP_TK
 template <bool GRID>
 int launch_tiles(const void* fp, const void* ip, int n_rows, int n_paths,
                  int n_streams, int rows_per_block, int months_per_chunk,
@@ -1135,7 +1267,30 @@ int launch_tiles(const void* fp, const void* ip, int n_rows, int n_paths,
 
 extern "C" {
 
-#if !MCRT_THREEFRY
+#if MCRT_JVP_TK
+// One launch of jvp_kernel: the row's per-path success and final balance
+// (n) and kTK tangent rows (kTK x n) of the final balance along the kTK rows
+// of fp_dot. n_params, n_streams, tangents and elem_bytes are the caller's
+// view of the block, checked against this library's.
+int mcrt_jvp(const void* fp, const void* fp_dot, const void* ip,
+             const void* keys, int n_paths, int n_params, int n_streams,
+             int tangents, int elem_bytes, int acc_cap, long long row_offset,
+             void* success, void* final_bal, void* tangent_rows,
+             void* stream) {
+  if (n_paths < 1 || n_params != kRow || n_streams != kNS ||
+      tangents != kTK || elem_bytes != static_cast<int>(sizeof(Real)) ||
+      row_offset < 0 || (kThreefry && keys == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaGetLastError();
+  jvp_kernel<<<(n_paths + kJvpThreads - 1) / kJvpThreads, kJvpThreads, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Real*>(fp), static_cast<const Real*>(fp_dot),
+      static_cast<const int*>(ip), static_cast<const uint32_t*>(keys),
+      n_paths, acc_cap, row_offset, static_cast<Real*>(success),
+      static_cast<Real*>(final_bal), static_cast<Real*>(tangent_rows));
+  return static_cast<int>(cudaGetLastError());
+}
+#elif !MCRT_THREEFRY
 int mcrt_probe(const void* fp, const void* ip, int n_cand, int n_paths,
                int n_streams, int rows_per_block, int months_per_chunk,
                int fields, int smem_bytes, void* success, void* final_bal,

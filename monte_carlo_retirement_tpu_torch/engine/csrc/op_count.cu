@@ -33,16 +33,25 @@
 //
 // price the colder bands, which bound.py adds at the share of the normals
 // that take them.
+//
+// A JVP unit (MCRT_JVP_TK) holds the JVP kernel's parts instead, every
+// value a Dual of MCRT_JVP_TK tangents (the draws excepted):
+//
+//   count_jvp_draw          one path-month's draw and its growth factors
+//   count_jvp_accum / count_jvp_accum_plain    one accumulation month
+//   count_jvp_retire / count_jvp_retire_plain  one retirement month
 
 #define MCRT_ERFINV_BAND 0
 #include "month_loop.cu"
 
 namespace {
 
-constexpr int kCarryFloats = 19 + 2 * kSlots;  // values of Real
+constexpr int kCarryFloats = 19 + 2 * kSlots;  // values of the scalar type
 
-__device__ __forceinline__ Carry<Real> load_carry(const Real* __restrict__ v) {
-  Carry<Real> c;
+template <class T>
+__device__ __forceinline__ Carry<T> load_carry(const T* __restrict__ v) {
+  using P = typename Primal<T>::type;
+  Carry<T> c;
   c.b1 = v[0];
   c.c1 = v[1];
   c.b2 = v[2];
@@ -51,7 +60,7 @@ __device__ __forceinline__ Carry<Real> load_carry(const Real* __restrict__ v) {
   c.alive_f = v[5];
   c.g1a = v[6];
   c.g2a = v[7];
-  c.preret = v[8] > Real(0.5);
+  c.preret = v[8] > P(0.5);
   c.smult = v[9];
   c.d_mort = v[10];
   c.glide_scale = v[11];
@@ -70,8 +79,10 @@ __device__ __forceinline__ Carry<Real> load_carry(const Real* __restrict__ v) {
   return c;
 }
 
-__device__ __forceinline__ void store_carry(Real* __restrict__ v,
-                                            const Carry<Real>& c) {
+template <class T>
+__device__ __forceinline__ void store_carry(T* __restrict__ v,
+                                            const Carry<T>& c) {
+  using P = typename Primal<T>::type;
   v[0] = c.b1;
   v[1] = c.c1;
   v[2] = c.b2;
@@ -80,7 +91,7 @@ __device__ __forceinline__ void store_carry(Real* __restrict__ v,
   v[5] = c.alive_f;
   v[6] = c.g1a;
   v[7] = c.g2a;
-  v[8] = c.preret ? Real(1) : Real(0);
+  v[8] = c.preret ? P(1) : P(0);
   v[9] = c.smult;
   v[12] = c.ytr;
   v[13] = c.yg;
@@ -105,10 +116,12 @@ __device__ __forceinline__ PathKey key_at(const int* __restrict__ ip) {
 #endif
 
 // This thread's carry in, and where its carry goes.
-__device__ __forceinline__ const Real* carry_in(const Real* v) {
+template <class T>
+__device__ __forceinline__ const T* carry_in(const T* v) {
   return v + threadIdx.x * kCarryFloats;
 }
-__device__ __forceinline__ Real* carry_out(Real* v) {
+template <class T>
+__device__ __forceinline__ T* carry_out(T* v) {
   return v + (blockDim.x + threadIdx.x) * kCarryFloats;
 }
 
@@ -120,6 +133,7 @@ __device__ __forceinline__ void normal_band(const uint2* __restrict__ y,
 }
 #endif
 
+#if !MCRT_JVP_TK
 template <bool TRACK>
 __device__ __forceinline__ void one_retire(const Real* __restrict__ fp,
                                            const Real* __restrict__ g,
@@ -132,10 +146,71 @@ __device__ __forceinline__ void one_retire(const Real* __restrict__ fp,
   retire_month<TRACK>(sc, c, m, w, t_end, g[0], g[1], g[2], rec);
   store_carry(carry_out(v), c);
 }
+#endif
 
 }  // namespace
 
 extern "C" {
+
+#if MCRT_JVP_TK
+__global__ void count_jvp_draw(const DReal* __restrict__ fp,
+                               const int* __restrict__ ip,
+                               DReal* __restrict__ out) {
+  const Scenario<DReal> sc(fp);
+  DReal g1, gi, g2;
+  growth(sc, real_shock(month_shock(ip[0], key_at(ip))), g1, gi, g2);
+  out += 3 * threadIdx.x;
+  out[0] = g1;
+  out[1] = gi;
+  out[2] = g2;
+}
+
+__global__ void count_jvp_accum(const DReal* __restrict__ fp,
+                                const DReal* __restrict__ g,
+                                const int* __restrict__ ip,
+                                DReal* __restrict__ v) {
+  const Scenario<DReal> sc(fp);
+  Carry<DReal> c = load_carry(carry_in(v));
+  g += 3 * threadIdx.x;
+  accum_month(sc, c, ip[0], g[0], g[1], g[2]);
+  store_carry(carry_out(v), c);
+}
+
+__global__ void count_jvp_accum_plain(const DReal* __restrict__ fp,
+                                      const DReal* __restrict__ g,
+                                      DReal* __restrict__ v) {
+  const Scenario<DReal> sc(fp);
+  Carry<DReal> c = load_carry(carry_in(v));
+  g += 3 * threadIdx.x;
+  accum_month(sc, c, 5, g[0], g[1], g[2]);
+  store_carry(carry_out(v), c);
+}
+
+__global__ void count_jvp_retire(const DReal* __restrict__ fp,
+                                 const DReal* __restrict__ g,
+                                 const int* __restrict__ ip,
+                                 DReal* __restrict__ v) {
+  const Scenario<DReal> sc(fp);
+  Carry<DReal> c = load_carry(carry_in(v));
+  g += 3 * threadIdx.x;
+  retire_month<false>(sc, c, ip[0], ip[1], ip[2], g[0], g[1], g[2],
+                      Records<DReal>{});
+  store_carry(carry_out(v), c);
+}
+
+// m = 14, W = 12, as count_retire_plain.
+__global__ void count_jvp_retire_plain(const DReal* __restrict__ fp,
+                                       const DReal* __restrict__ g,
+                                       const int* __restrict__ ip,
+                                       DReal* __restrict__ v) {
+  const Scenario<DReal> sc(fp);
+  Carry<DReal> c = load_carry(carry_in(v));
+  g += 3 * threadIdx.x;
+  retire_month<false>(sc, c, 14, 12, ip[2], g[0], g[1], g[2],
+                      Records<DReal>{});
+  store_carry(carry_out(v), c);
+}
+#else
 
 __global__ void count_draw_probe(const Real* __restrict__ fp,
                                  const int* __restrict__ ip,
@@ -237,6 +312,8 @@ __global__ void count_retire_track_plain(const Real* __restrict__ fp,
                     ip[5],  ip[6],      ip[7],      ip[8]};
   one_retire<true>(fp, g, 14, 12, ip[2], rec, v);
 }
+
+#endif  // MCRT_JVP_TK
 
 #if MCRT_THREEFRY
 __global__ void count_normal_band0(const uint2* __restrict__ y,

@@ -20,7 +20,12 @@ kernel is a form of one month loop (``csrc/month_loop.cu``):
     JAX's threefry scan, ``simulate_paths`` (``monte_carlo_retirement_tpu/
     engine/kernel.py:124``, a ``lax.scan`` that XLA fuses into one device
     loop): the probe's or the batch's rows, and the tracked run, on the
-    scan's own draws (:func:`scan_keys`), in float32 or float64.
+    scan's own draws (:func:`scan_keys`), in float32 or float64;
+  * :func:`simulate_jvp` replaces the compiled form of JAX's forward-mode
+    AD through that loop, ``jit(jacfwd(metric))``
+    (``monte_carlo_retirement_tpu/engine/sensitivity.py:476-495``): one
+    row's per-path final balance and its tangents along directions of the
+    parameter block, on either draw source, in float32 or float64.
 
 The probe and grid kernels draw each path-month once for all the rows of
 a block and share it through shared memory; :func:`tile_plan` decides
@@ -29,8 +34,8 @@ their launch (rows and paths per block, months per draw tile) and
 
 Beside each wrapper is its plain PyTorch version (:func:`probe_plain`,
 :func:`grid_plain`, :func:`simulate_plain`, :func:`simulate_full_plain`,
-:func:`scan_rows_plain`, :func:`scan_full_plain`: thin calls into
-``engine/kernel.py``). A wrapper takes the plain version
+:func:`scan_rows_plain`, :func:`scan_full_plain`, :func:`simulate_jvp_plain`:
+thin calls into ``engine/kernel.py``, the last under ``torch.func.jvp``). A wrapper takes the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
 raises. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain
 calls, so a run can show which path it took; the counts stay exact when
@@ -63,11 +68,11 @@ from ..ops.shocks import JUMP_FOLD_OFFSET, MORT_FOLD_OFFSET
 
 # Kernel launches / plain-version calls since the last reset, changed only
 # under _COUNT_LOCK (a dict increment is a read-modify-write). "scan" counts
-# both scan kernels (rows and full). "ad" counts the AD passes of the
-# sensitivity (engine/sensitivity.sensitivity_ad), which run the plain loop
-# by design, on either stream.
+# both scan kernels (rows and full). "ad" counts the JVP kernel's launches
+# (one per TK tangents) and the calls of its plain version, the AD passes
+# of engine/sensitivity.sensitivity_ad on either stream.
 LAUNCHES: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0,
-                            "scan": 0}
+                            "scan": 0, "ad": 0}
 PLAIN_CALLS: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0,
                                "scan": 0, "ad": 0}
 _COUNT_LOCK = threading.Lock()
@@ -803,6 +808,122 @@ def scan_full_plain(packed: Packed, statics: Statics, retirement_years: int,
     return kernel.scan_chain(packed, statics, retirement_years, n_paths,
                              stream_key, t_scan=t_scan, row_offset=row_offset,
                              traj_len=traj_len)
+
+
+# ---------------------------------------------------------------------------
+# forward-mode AD: the month loop's JVP (sensitivity_ad)
+# ---------------------------------------------------------------------------
+# Tangents one jvp_kernel launch carries, in either scalar type: a K above
+# it runs as ceil(K / TK) launches, the last zero-padded. Under
+# config.json's Statics the float64 kernel spills at TK = 8 and not at 4
+# (chip_smoke.py phase 1 builds both and prints their registers and
+# spills; PERF.md §6).
+JVP_TK = 4
+
+
+class JvpOut(NamedTuple):
+    success: torch.Tensor  # (n,) float 0/1 alive flags
+    final_balance: torch.Tensor  # (n,)
+    tangents: torch.Tensor  # (K, n): d final_balance along fp_dot's rows
+
+
+def _jvp_route(stream_key, t_scan):
+    if (stream_key is None) != (t_scan is None):
+        raise ValueError("the scan's draws take stream_key and t_scan together")
+    return "philox" if stream_key is None else "threefry"
+
+
+def simulate_jvp(packed: Packed, fp_dot: torch.Tensor, statics: Statics,
+                 retirement_years: int, n_paths: int, *, stream_key=None,
+                 t_scan: Optional[int] = None, row_offset: int = 0) -> JvpOut:
+    """One row's month loop and its forward-mode derivative: per-path
+    success and final balance (n,), and the final balance's tangents (K, n)
+    along the K rows of ``fp_dot`` (K, F.NUM + 5*S), directions of the
+    parameter block ``packed.fp``. The draws are the grid kernel's Philox
+    stream (``packed``'s seed and block offset), or with ``stream_key`` and
+    ``t_scan`` the scan's threefry stream for the global paths
+    ``row_offset ..`` (``kernel.scan_chain``). float32 or float64.
+
+    On a CUDA tensor it launches ``jvp_kernel`` (one launch per
+    ``JVP_TK`` directions) or raises; on a CPU tensor it runs
+    :func:`simulate_jvp_plain`. The tangents are passed as such, never
+    formed as ``fp + h * fp_dot``: a slot may hold +inf."""
+    route = _jvp_route(stream_key, t_scan)
+    require_device(packed.device)
+    if packed.ip.shape[0] != 1:
+        raise ValueError("simulate_jvp takes one working_months value")
+    width = F.NUM + 5 * packed.n_streams
+    if fp_dot.ndim != 2 or fp_dot.shape[1] != width or fp_dot.shape[0] < 1:
+        raise ValueError(f"fp_dot of shape {tuple(fp_dot.shape)}: need (K >= 1, "
+                         f"{width}) tangent directions")
+    if fp_dot.dtype != packed.fp.dtype or fp_dot.device != packed.device:
+        raise TypeError(f"fp_dot is {fp_dot.dtype} on {fp_dot.device}, the "
+                        f"block {packed.fp.dtype} on {packed.device}")
+    if _runs_plain(packed, statics, "jvp", SCAN_DTYPES):
+        return simulate_jvp_plain(packed, fp_dot, statics, retirement_years,
+                                  n_paths, stream_key=stream_key,
+                                  t_scan=t_scan, row_offset=row_offset)
+    from . import _build
+
+    fp, dev = packed.fp.reshape(-1), packed.device
+    real = "float" if fp.dtype == torch.float32 else "double"
+    tk = JVP_TK
+    lib = _build.load(_build.Unit(statics, real, route, tk))
+    n, R, K = int(n_paths), int(retirement_years), int(fp_dot.shape[0])
+    launches = -(-K // tk)
+    dirs = torch.zeros((launches * tk, width), dtype=fp.dtype, device=dev)
+    dirs[:K] = fp_dot
+    keys, acc_cap = None, 0
+    if route == "threefry":
+        keys = _scan_launch_keys(packed, statics, stream_key)
+        acc_cap = int(t_scan) - MONTHS_PER_YEAR * R
+    success = torch.empty(n, dtype=fp.dtype, device=dev)
+    final = torch.empty(n, dtype=fp.dtype, device=dev)
+    tangents = torch.empty((launches * tk, n), dtype=fp.dtype, device=dev)
+    for j in range(launches):
+        with torch.cuda.device(dev):
+            rc = lib.mcrt_jvp(
+                fp.data_ptr(), dirs[j * tk].data_ptr(), packed.ip.data_ptr(),
+                None if keys is None else keys.data_ptr(), n, width,
+                packed.n_streams, tk, fp.element_size(), acc_cap,
+                int(row_offset), success.data_ptr(), final.data_ptr(),
+                tangents[j * tk].data_ptr(), _stream_ptr(dev),
+            )
+        _build.check(lib, rc, "jvp_kernel launch")
+        _count(LAUNCHES, "ad")
+    return JvpOut(success, final, tangents[:K])
+
+
+def simulate_jvp_plain(packed: Packed, fp_dot: torch.Tensor, statics: Statics,
+                       retirement_years: int, n_paths: int, *,
+                       stream_key=None, t_scan: Optional[int] = None,
+                       row_offset: int = 0) -> JvpOut:
+    """Plain PyTorch version of :func:`simulate_jvp`: ``torch.func.jvp`` of
+    the plain loop (``kernel.simulate``, or ``kernel.scan_chain`` on the
+    scan's draws) with respect to ``packed.fp``, vectorised over the rows of
+    ``fp_dot`` (``torch.func.vmap``), as ``torch.func.jacfwd`` runs it."""
+    from . import kernel
+
+    route = _jvp_route(stream_key, t_scan)
+    _count(PLAIN_CALLS, "ad")
+    R, n = int(retirement_years), int(n_paths)
+
+    def loop(fp):
+        block = Packed(fp=fp, ip=packed.ip, n_streams=packed.n_streams)
+        if route == "philox":
+            out = kernel.simulate(block, statics, R, n)
+        else:
+            out = kernel.scan_chain(block, statics, R, n, stream_key,
+                                    t_scan=t_scan, row_offset=row_offset)
+        return out["final_balance"][0], out["success"][0]
+
+    def push(direction):
+        return torch.func.jvp(loop, (packed.fp,), (direction.reshape(packed.fp.shape),),
+                              has_aux=True)
+
+    final, tangents, success = torch.func.vmap(push, out_dims=(None, 0, None))(
+        fp_dot)
+    return JvpOut(success, final, tangents)
 
 
 # ---------------------------------------------------------------------------

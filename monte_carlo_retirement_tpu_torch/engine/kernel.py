@@ -28,8 +28,10 @@ while W < m <= W + 12R, and its snapshot right after its own month W. The
 loop runs in float64 on the CPU (the tests and the CPU engine) and in
 float32 on the card, where it is the yardstick of the kernels; as the
 scan (:func:`scan_chain`) it runs in either precision on either device:
-the CPU's scan, the yardstick of the scan kernels on the card, and the
-AD pass's loop.
+the CPU's scan and the yardstick of the scan kernels on the card. Under
+``torch.func.jvp`` either form is the plain version of the JVP kernel
+(``cuda_kernel.simulate_jvp_plain``): the CPU's AD pass and the kernel's
+yardstick on the card.
 """
 
 from __future__ import annotations
@@ -614,8 +616,8 @@ def scan_chain(packed: Packed, statics: Statics, retirement_years: int,
     ``stream_key`` for the global paths ``row_offset ..``, in ``packed``'s
     dtype, accumulating while m <= min(W, t_scan - 12 R). The plain version
     of the scan kernels (``cuda_kernel.scan_rows_plain``/``scan_full_plain``)
-    and, under ``torch.func.jacfwd``, the AD pass's loop (a kernel carries
-    no tangent: ``sensitivity_ad(backend="scan")`` calls this by name)."""
+    and, under ``torch.func.jvp``, of the JVP kernel on the scan's draws
+    (``cuda_kernel.simulate_jvp_plain``)."""
     draws = ScanDraws(stream_key, n_paths, packed.fp.dtype,
                       antithetic=statics.antithetic, jumps=statics.jumps,
                       row_offset=row_offset, device=packed.device)

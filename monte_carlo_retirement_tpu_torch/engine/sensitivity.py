@@ -9,14 +9,15 @@ package's ``engine/sensitivity.py``, with the port's imports):
   flips contribute. Cost: 2K+1 grid rows on the grid kernel.
 
 * **Forward-mode AD** (``sensitivity_ad``, JAX lines 354-551): d mean final
-  balance / d theta by ``torch.func.jacfwd`` through the plain month loop
-  (``engine/kernel.simulate``) on the engine's device, every parameter's
-  tangent in one pass. The JAX package differentiates its XLA scan, not a
-  Pallas kernel, so the plain loop is the faithful counterpart. By default
-  the paths are the grid kernel's (the same Philox stream seed); with
+  balance / d theta, every parameter's tangent in one pass. The tangents of
+  the parameter block come from ``torch.func.jacfwd`` of theta -> block
+  (scalars only); the month loop's JVP along them is the JVP kernel on the
+  card (``cuda_kernel.simulate_jvp``, the compiled form of JAX's
+  ``jit(jacfwd)`` through its scan) and its plain version,
+  ``torch.func.jvp`` of the plain loop, on the CPU. By default the paths
+  are the grid kernel's (the same Philox stream seed); with
   ``backend="scan"`` they are JAX's own (``simulate_paths``' draws on
-  ``stream_keys(seed)[1]``, through the scan's plain chain,
-  ``kernel.scan_chain``: the scan kernel has no tangent). Both functions read ``MCRT_GRID_BACKEND``, so
+  ``stream_keys(seed)[1]``). Both functions read ``MCRT_GRID_BACKEND``, so
   AD and the CRN finite difference always see the same shocks. Success is
   a step function (AD sees derivative 0), so AD covers the smooth
   mean-final-balance metric as an independent cross-check of the FD
@@ -41,10 +42,9 @@ from ..models.retirement import SimParams
 from ..ops.shocks import stream_keys
 from . import kernel
 from .cuda_kernel import (
-    PLAIN_CALLS,
-    _count,
     pack_params,
     require_device,
+    simulate_jvp,
     statics_from_config,
 )
 from .scenario_batch import (
@@ -368,7 +368,7 @@ def sensitivity_fd(
 
 
 # ----------------------------------------------------------------------
-# Forward-mode AD through the plain month loop
+# Forward-mode AD through the month loop
 # ----------------------------------------------------------------------
 
 def _log_params_ad(mean, vol):
@@ -497,6 +497,45 @@ def _scan_statics_ad(config: Config, names: Sequence[str], device):
     )
 
 
+def ad_inputs(config: Config, working_months: int, names: Sequence[str],
+              seed: int, device, backend: str, dtype):
+    """What ``sensitivity_ad`` hands the JVP: the row's parameter block
+    (``Packed``), the block's tangents along each theta entry (K, F.NUM +
+    5*S, in the block's dtype) from ``torch.func.jacfwd`` of theta -> block
+    on ``device``, the
+    loop's ``Statics`` and the draws (``stream_key``/``t_scan`` on the
+    scan, none on the grid kernel's Philox stream)."""
+    w = int(working_months)
+    R = int(config.retirement_years)
+    if backend == "scan":
+        statics = _scan_statics_ad(config, names, device)
+        draws = dict(stream_key=stream_keys(seed)[1],
+                     t_scan=w + MONTHS_PER_YEAR * R)
+
+        def pack(p):
+            return kernel.scan_block(p, [w], R, dtype, device=device,
+                                     statics=statics)[0]
+    else:
+        statics = statics_from_config(config)
+        draws = {}
+        stream_seed = _grid_stream_seed(seed)
+
+        def pack(p):
+            return pack_params(p, stream_seed, [w], R, dtype=dtype,
+                               device=device)
+
+    dump = config.model_dump()
+    theta0 = torch.tensor([float(dump[n]) for n in names],
+                          dtype=torch.float64, device=device)
+
+    def block(theta):
+        return pack(_params_from_theta(config, names, theta, device=device)).fp
+
+    fp_dot = torch.func.jacfwd(block)(theta0).reshape(-1, len(names))
+    packed = pack(_params_from_theta(config, names, theta0, device=device))
+    return packed, fp_dot.t().to(packed.fp.dtype).contiguous(), statics, draws
+
+
 def sensitivity_ad(
     config: Config,
     working_months: int,
@@ -507,14 +546,18 @@ def sensitivity_ad(
     backend: Optional[str] = None,
     dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, float]:
-    """d mean-final-balance / d theta by ``torch.func.jacfwd`` through the
-    month loop on ``device``, every parameter in one pass, in ``dtype``
-    (default float32 on the card, float64 on the CPU). Returns
+    """d mean-final-balance / d theta by forward-mode AD through the month
+    loop on ``device``, every parameter in one pass, in ``dtype`` (default
+    float32 on the card, float64 on the CPU): the JVP kernel on the card
+    (``cuda_kernel.simulate_jvp``; it raises rather than run anything
+    else), its plain version (``torch.func.jvp`` of the plain loop) on the
+    CPU, along the parameter block's tangents (:func:`ad_inputs`). Equal to
+    ``torch.func.jacfwd`` of the mean through the plain loop. Returns
     ``{"mean_final_balance": value, "d_mean_final": {name: grad}}``.
 
     ``backend`` (default ``MCRT_GRID_BACKEND``, else "auto", as
     :func:`sensitivity_fd` reads it, so the two share their draws):
-    "auto", "pallas" and "pallas_sharded" differentiate the plain loop on
+    "auto", "pallas" and "pallas_sharded" differentiate the month loop on
     the grid kernel's Philox stream; "scan" is JAX's ``sensitivity_ad``:
     ``simulate_paths`` on ``stream_keys(seed)[1]`` over ``W + 12 R``
     months, equal to JAX's on the same seed to round-off.
@@ -547,40 +590,12 @@ def sensitivity_ad(
     device = torch.device(device)
     if dtype is None:
         dtype = torch.float32 if device.type == "cuda" else torch.float64
-    w = int(working_months)
-    R = int(config.retirement_years)
-    n = int(num_paths)
-
-    if backend == "scan":
-        statics = _scan_statics_ad(config, names, device)
-        final_key = stream_keys(seed)[1]
-
-        def final_balances(p):
-            # The plain chain by name: a kernel carries no tangent.
-            packed, _ = kernel.scan_block(p, [w], R, dtype, device=device,
-                                          statics=statics)
-            return kernel.scan_chain(packed, statics, R, n, final_key,
-                                     t_scan=w + MONTHS_PER_YEAR * R
-                                     )["final_balance"][0]
-    else:
-        statics = statics_from_config(config)
-        stream_seed = _grid_stream_seed(seed)
-
-        def final_balances(p):
-            packed = pack_params(p, stream_seed, [w], R, dtype=dtype,
-                                 device=device)
-            return kernel.simulate(packed, statics, R, n)["final_balance"]
-
-    def metric(theta):
-        p = _params_from_theta(config, names, theta, device=device)
-        mean = final_balances(p).to(torch.float64).mean()
-        return mean, mean
-
-    theta0 = torch.tensor([float(dump[n]) for n in names],
-                          dtype=torch.float64, device=device)
-    _count(PLAIN_CALLS, "ad")
-    grads, value = torch.func.jacfwd(metric, has_aux=True)(theta0)
-    grads = grads.cpu().numpy()
+    packed, fp_dot, statics, draws = ad_inputs(config, working_months, names,
+                                               seed, device, backend, dtype)
+    out = simulate_jvp(packed, fp_dot, statics, int(config.retirement_years),
+                       int(num_paths), **draws)
+    value = out.final_balance.to(torch.float64).mean()
+    grads = out.tangents.to(torch.float64).mean(dim=1).cpu().numpy()
     return {
         "mean_final_balance": float(value),
         "d_mean_final": {name: float(g) for name, g in zip(names, grads)},

@@ -9,10 +9,12 @@ and their times.
 line to OUT.jsonl: at chip_smoke.py phase 6's shapes, for the 16-candidate
 probe at 1M x 600 under config.json's Statics and under
 ``chip_smoke.ALL_ON``, one 16-row chunk of the 16 x 16 grid (W=231, R=50,
-1M paths), ``simulate`` at 1M x 600 and the full kernel at 1M x 600: the
-per-row survivor counts, the float64 sum of each row's final balances, a
-checksum of the bits of every output, and the CUDA-event time (warm, min
-of 5); then the CUDA-event time of the plain versions of the probe, the
+1M paths), ``simulate`` at 1M x 600 and the full kernel at 1M x 600, and
+the scan kernels at the same shapes in float32 and float64
+(``scan_rows_kernel``: the 16 rows at 1M x 600; ``scan_full_kernel``: 1M x
+600): the per-row survivor counts, the float64 sum of each row's final
+balances, a checksum of the bits of every output, and the CUDA-event time
+(warm, min of 5); then the CUDA-event time of the plain versions of the probe, the
 grid chunk, ``simulate`` and the full run (and of the full run under
 ``ALL_ON``), min of 2. Run it once per checkout in turns (parent, change, change,
 parent) so both see the same card. ``report`` prints the times side by
@@ -73,11 +75,25 @@ def run(root: str, label: str, out_path: str) -> int:
         "simulate": lambda: ck.simulate(full, eng.statics, R, n),
         "full": lambda: ck.simulate_full(full, eng.statics, R, n, L),
     }
+    kernel = importlib.import_module(f"{pkg}.engine.kernel")
+    flags = cs._scan_flags(cs._config(**scen))
+    t_probe, t_full = eng._t_scan(15), eng._t_scan(0)
+    search, final_key = eng._key("search"), eng._key("final")
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        rows, st = kernel.scan_block(eng.params, list(range(16)), R, dtype,
+                                     **flags)
+        one, _ = kernel.scan_block(eng.params, [0], R, dtype, statics=st)
+        cases[f"scan_rows_{tag}"] = (
+            lambda rows=rows, st=st: ck.scan_rows(rows, st, R, n, search,
+                                                  t_scan=t_probe))
+        cases[f"scan_full_{tag}"] = (
+            lambda one=one, st=st: ck.scan_full(one, st, R, n, L, final_key,
+                                                t_scan=t_full))
     line = {"label": label, "root": root, "card": cs._card_line()}
     for name, fn in cases.items():
         out = fn()
         torch.cuda.synchronize()
-        if name == "full":
+        if isinstance(out, dict):  # the full kernels' fields
             res = {k: _digest(v) for k, v in out.items()}
         else:
             success, final = out.success, out.final_balance
