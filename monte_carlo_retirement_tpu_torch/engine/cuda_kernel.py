@@ -65,6 +65,7 @@ from ..constants import MONTHS_PER_YEAR
 from ..models.retirement import SimParams, prune_streams
 from ..ops import threefry
 from ..ops.shocks import JUMP_FOLD_OFFSET, MORT_FOLD_OFFSET
+from ..utils import profiling
 
 # Kernel launches / plain-version calls since the last reset, changed only
 # under _COUNT_LOCK (a dict increment is a read-modify-write). "scan" counts
@@ -531,6 +532,7 @@ def _plain_rows(packed: Packed, statics: Statics, retirement_years: int,
 # ---------------------------------------------------------------------------
 # probe: candidate-parallel success for the search
 # ---------------------------------------------------------------------------
+@profiling.traced("kernel.probe")
 def probe(packed: Packed, statics: Statics, retirement_years: int,
           n_paths: int) -> ProbeOut:
     """Per-candidate survivors over exactly ``n_paths`` paths (kernel on a
@@ -556,6 +558,7 @@ def probe_plain(packed: Packed, statics: Statics, retirement_years: int,
 # ---------------------------------------------------------------------------
 # scenario grid: one parameter row per scenario, shocks shared by the grid
 # ---------------------------------------------------------------------------
+@profiling.traced("kernel.grid")
 def grid(packed: Packed, statics: Statics, retirement_years: int,
          n_paths: int) -> ProbeOut:
     """Per-scenario survivors, alive flags and final balances (K, n) over
@@ -620,6 +623,7 @@ VECTOR_FIELDS = (
 )
 
 
+@profiling.traced("kernel.full")
 def simulate_full(packed: Packed, statics: Statics, retirement_years: int,
                   n_paths: int, traj_len: int) -> Dict[str, torch.Tensor]:
     """Per-path vectors (n,) and series ``trajectory``/``price_levels``

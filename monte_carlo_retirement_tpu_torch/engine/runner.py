@@ -77,6 +77,7 @@ from ..parallel.mesh import (
     mesh_device,
 )
 from ..timing import expected_trajectory_length
+from ..utils import profiling
 from .cuda_kernel import (
     VECTOR_FIELDS,
     pack_params,
@@ -196,7 +197,8 @@ def _fetch(groups):
     each tensor's dtype. Returns one dict per group."""
     leaves = [t for g in groups for t in g.values()]
     flat = torch.cat([t.reshape(-1).to(torch.float64) for t in leaves])
-    flat = flat.cpu().numpy()
+    with profiling.span("card.sync", what="final"):
+        flat = flat.cpu().numpy()
     out, at = [], 0
     for group in groups:
         fields = {}
@@ -371,7 +373,6 @@ class Engine:
             raise ValueError(f"num_simulations must be >= 1, got {n_total}")
         t_scan = self._t_scan(int(horizon_months or max(months)))
         probe_backend = self._resolve_backend(backend, "probe")
-        t_start = time.perf_counter()
         out: List[float] = []
         for i in range(0, len(months), PROBE_WIDTH):
             chunk = months[i : i + PROBE_WIDTH]
@@ -387,11 +388,6 @@ class Engine:
             # Merge over chunks as exact counts: the path-weighted mean.
             pct = counts.astype(np.float64) / simulated * 100.0
             out.extend(float(v) for v in pct[: len(chunk)])
-        log.debug(
-            "phase=probe backend=%s device=%s candidates=%d paths=%d: %.3f s",
-            probe_backend, self.device, len(months), n_total,
-            time.perf_counter() - t_start,
-        )
         return out
 
     # ------------------------------------------------------------------
@@ -460,7 +456,9 @@ class Engine:
             ).counts
             counts = part if counts is None else counts + part
             offset += -(-cn // BLOCK_PATHS)
-        return counts.cpu().numpy(), n_total
+        with profiling.span("card.sync", what="probe"):
+            counts = counts.cpu().numpy()
+        return counts, n_total
 
     def _probe_counts_mesh(self, padded: List[int], stream: str, n_total: int):
         """Survivors per candidate over every path the mesh simulates (the
@@ -486,6 +484,7 @@ class Engine:
     # ------------------------------------------------------------------
     # full run with all statistics
     # ------------------------------------------------------------------
+    @profiling.traced("plan.final")
     def run(
         self, working_months: int, num_simulations: int, stream: str = "final",
         backend: Optional[str] = None, reduced: bool = False,
@@ -537,7 +536,9 @@ class Engine:
                            serving_bins(full, self.retirement_years)._asdict()])
             bins = _host_bins(b)
         else:
-            s = {name: v.cpu().numpy() for name, v in summary._asdict().items()}
+            with profiling.span("card.sync", what="final"):
+                s = {name: v.cpu().numpy()
+                     for name, v in summary._asdict().items()}
         host = _host_vectors(None if reduced else full)
         log.info(
             "phase=final_run backend=%s device=%s paths=%d months=%d "

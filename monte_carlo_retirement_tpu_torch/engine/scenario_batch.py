@@ -47,6 +47,7 @@ from ..models.retirement import stack_params
 from ..ops.quantiles import exact_quantiles
 from ..ops.shocks import stream_keys
 from ..parallel.mesh import PathMesh, mesh_device
+from ..utils import profiling
 from .cuda_kernel import (
     Statics,
     check_grid_statics,
@@ -144,6 +145,7 @@ def _from_table(table: np.ndarray) -> ScenarioBatchResult:
     )
 
 
+@profiling.traced("grid.run")
 def run_scenario_grid(
     configs: Sequence[Config],
     working_months: Sequence[int],
@@ -221,8 +223,11 @@ def run_scenario_grid(
     def collect_one():
         nonlocal done
         k, table = pending.pop(0)
-        parts.append(table if isinstance(table, ScenarioBatchResult)
-                     else _from_table(table.cpu().numpy()))
+        if not isinstance(table, ScenarioBatchResult):
+            with profiling.span("card.sync", what="grid"):
+                host = table.cpu().numpy()
+            table = _from_table(host)
+        parts.append(table)
         done += k
         if progress_callback is not None:
             progress_callback(

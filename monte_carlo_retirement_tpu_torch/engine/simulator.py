@@ -23,6 +23,7 @@ from ..constants import (
     WITHDRAWAL_RATE_PERCENTILES,
 )
 from ..search.driver import find_minimum_working_months as _search
+from ..utils import profiling
 from .runner import Engine, RunResult
 
 log = logging.getLogger("mcrt.simulator")
@@ -174,6 +175,7 @@ class RetirementMonteCarloSimulator:
             list(months), sim_count, stream="search", horizon_months=horizon
         )
 
+    @profiling.traced("plan.search")
     def find_minimum_working_months(
         self,
         verbose: bool = True,

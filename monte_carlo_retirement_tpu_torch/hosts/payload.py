@@ -40,6 +40,7 @@ from ..timing import (
     stream_payment_start_month_index,
     trajectory_time_points,
 )
+from ..utils import profiling
 
 
 def max_raw_paths() -> int:
@@ -207,6 +208,7 @@ def _search_curve_block(
     }
 
 
+@profiling.traced("plan.payload")
 def build_result(
     config: Config,
     simulator,

@@ -44,6 +44,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import concurrent.futures
+import contextvars
 import functools
 import json
 import logging
@@ -58,6 +59,7 @@ from ..constants import MAX_SEARCH_YEARS, MONTHS_PER_YEAR
 from ..engine.cuda_kernel import require_device
 from ..engine.simulator import RetirementMonteCarloSimulator
 from ..logging_utils import configure_logging
+from ..utils import profiling
 from .grid import GridRequest, GridResponse, prepare_grid, run_prepared_grid
 from .payload import build_result
 from .schemas import SimulationRequest, SimulationResponse
@@ -95,12 +97,25 @@ _ENGINE_POOL = concurrent.futures.ThreadPoolExecutor(
 )
 
 
+def _pooled(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` for the engine executor, in a copy of the
+    caller's context (``run_in_executor`` passes none, so the spans it
+    opens would lose their request); its first line records the wait for
+    a worker since this call as the ``pool.wait`` span."""
+    submitted = profiling.stamp()
+    context = contextvars.copy_context()
+
+    def start():
+        profiling.record("pool.wait", submitted)
+        return fn(*args, **kwargs)
+
+    return functools.partial(context.run, start)
+
+
 async def _run_engine(fn, *args, **kwargs):
     """Await ``fn(*args, **kwargs)`` on the bounded engine executor."""
     loop = asyncio.get_event_loop()
-    return await loop.run_in_executor(
-        _ENGINE_POOL, functools.partial(fn, *args, **kwargs)
-    )
+    return await loop.run_in_executor(_ENGINE_POOL, _pooled(fn, *args, **kwargs))
 
 # The torch device every route of an app runs on.
 DEVICE = web.AppKey("device", str)
@@ -224,12 +239,32 @@ async def validate(request: web.Request) -> web.Response:
     return web.json_response({"valid": True, "scenario": config.Nickname})
 
 
+async def _answer(name: str, handle, request: web.Request) -> web.Response:
+    """``await handle(request, span)`` inside the request span ``name``,
+    whose ``status`` attribute is the answer's HTTP status."""
+    with profiling.request_span(name) as span:
+        try:
+            response = await handle(request, span)
+        except web.HTTPException as exc:
+            span.set(status=exc.status)
+            raise
+        span.set(status=response.status)
+        return response
+
+
 async def simulate(request: web.Request) -> web.Response:
-    body = await request.json()
-    try:
-        req, config = _parse_request(body)
-    except (ValidationError, ValueError) as exc:
-        raise web.HTTPUnprocessableEntity(text=f"Invalid configuration: {exc}")
+    return await _answer("http.simulate", _simulate, request)
+
+
+async def _simulate(request: web.Request, span) -> web.Response:
+    with profiling.span("http.parse"):
+        body = await request.json()
+        try:
+            req, config = _parse_request(body)
+        except (ValidationError, ValueError) as exc:
+            raise web.HTTPUnprocessableEntity(
+                text=f"Invalid configuration: {exc}")
+    span.set(seed=config.seed)
 
     log.info("Received simulation request for scenario '%s'", config.Nickname)
     try:
@@ -244,9 +279,12 @@ async def simulate(request: web.Request) -> web.Response:
         log.exception("Simulation failed")
         raise web.HTTPInternalServerError(text=f"Simulation error: {exc}")
 
-    validated = SimulationResponse.model_validate(result).model_dump(mode="json")
+    with profiling.span("http.respond"):
+        validated = SimulationResponse.model_validate(result).model_dump(
+            mode="json")
+        response = web.json_response(validated)
     log.info("Simulation complete for '%s'", config.Nickname)
-    return web.json_response(validated)
+    return response
 
 
 async def _run_sse(
@@ -286,7 +324,7 @@ async def _run_sse(
 
     if preamble is not None:
         queue.put_nowait(preamble)
-    loop.run_in_executor(_ENGINE_POOL, worker)
+    loop.run_in_executor(_ENGINE_POOL, _pooled(worker))
 
     while True:
         event = await queue.get()
@@ -373,18 +411,26 @@ async def simulate_stream(request: web.Request) -> web.StreamResponse:
 async def grid(request: web.Request) -> web.Response:
     """POST /api/grid — a scenario grid (config deltas x working months) in
     chunked batched device dispatches; the non-streaming variant."""
-    body = await request.json()
-    try:
-        if not isinstance(body, dict):
-            raise ValueError(
-                f"request body must be a JSON object, got {type(body).__name__}"
-            )
-        req = GridRequest(**body)
-        # Worker thread: a 4096-variant request validates thousands of
-        # pydantic configs — never on the event loop. Still a 422.
-        prepared = await asyncio.to_thread(prepare_grid, req)
-    except (ValidationError, ValueError) as exc:
-        raise web.HTTPUnprocessableEntity(text=f"Invalid grid request: {exc}")
+    return await _answer("http.grid", _grid, request)
+
+
+async def _grid(request: web.Request, span) -> web.Response:
+    with profiling.span("http.parse"):
+        body = await request.json()
+        try:
+            if not isinstance(body, dict):
+                raise ValueError(
+                    "request body must be a JSON object, got "
+                    f"{type(body).__name__}"
+                )
+            req = GridRequest(**body)
+            # Worker thread: a 4096-variant request validates thousands of
+            # pydantic configs — never on the event loop. Still a 422.
+            prepared = await asyncio.to_thread(prepare_grid, req)
+        except (ValidationError, ValueError) as exc:
+            raise web.HTTPUnprocessableEntity(
+                text=f"Invalid grid request: {exc}")
+    span.set(seed=prepared[0][0].seed, variants=len(req.variants))
 
     log.info(
         "Received grid request: %d variants", len(req.variants)
@@ -401,9 +447,11 @@ async def grid(request: web.Request) -> web.Response:
         log.exception("Grid simulation failed")
         raise web.HTTPInternalServerError(text=f"Grid error: {exc}")
 
-    validated = GridResponse.model_validate(result).model_dump(mode="json")
+    with profiling.span("http.respond"):
+        validated = GridResponse.model_validate(result).model_dump(mode="json")
+        response = web.json_response(validated)
     log.info("Grid complete: %d rows", len(validated["rows"]))
-    return web.json_response(validated)
+    return response
 
 
 async def sensitivity(request: web.Request) -> web.Response:

@@ -1,4 +1,4 @@
-"""Tracing and profiling: per-phase device timing and trace capture.
+"""Tracing and profiling: per-phase device timing, trace capture, spans.
 
 Counterpart of the JAX package's ``utils/profiling.py``. ``device_timer``
 times a phase on the host's clock and, before it stops, waits for the
@@ -6,16 +6,33 @@ devices of the phase's result (CUDA work is asynchronous, as JAX dispatch
 is); ``trace_to`` captures a ``torch.profiler`` trace where the JAX module
 captures a ``jax.profiler`` one. The first call of a phase usually includes
 building its kernels (``engine/_build.py``); the log flags it.
+
+``span`` records where the served path spends its time: each span is
+``{id, name, parent, request, tid, t0, t1, attrs}``, ``t0``/``t1`` from
+``time.time_ns()`` (the clock a ``torch.profiler`` chrome trace is based
+on, ``baseTimeNanoseconds``) and ``tid`` from ``threading.get_native_id()``
+(the thread ids the profiler records). The open span and the request id
+live in one ``ContextVar``, so asyncio tasks parent correctly, and so does
+work handed to a thread under a copy of the caller's context
+(``asyncio.to_thread`` copies it; ``run_in_executor`` needs
+``contextvars.copy_context().run``). The recorder is off unless
+``enable()`` is called; off, ``span`` returns one shared no-op context
+after one check, reading no clock and taking no lock. Spans stay in memory
+until ``drain()``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
+import functools
+import itertools
 import logging
 import os
+import threading
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
@@ -126,3 +143,148 @@ def trace_to(log_dir: Optional[str]) -> Iterator[None]:
             log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
         prof.export_chrome_trace(path)
         log.info("profiler trace written to %s", path)
+
+
+# ---------------------------------------------------------------------------
+# spans of the served path
+# ---------------------------------------------------------------------------
+_RECORDING = False
+_SPANS: List[dict] = []
+_SPANS_LOCK = threading.Lock()
+_IDS = itertools.count(1)
+# (id of the open span, request id) of the running task or thread.
+_OPEN: contextvars.ContextVar = contextvars.ContextVar(
+    "mcrt_open_span", default=(None, None))
+
+
+class _Span:
+    """One span: opened on ``__enter__``, kept on ``__exit__``."""
+
+    __slots__ = ("record", "_token", "_new_request")
+
+    def __init__(self, name: str, attrs: dict, new_request: bool = False):
+        self.record = {"id": None, "name": name, "parent": None,
+                       "request": None, "tid": None, "t0": None, "t1": None,
+                       "attrs": attrs}
+        self._new_request = new_request
+        self._token = None
+
+    def __enter__(self) -> "_Span":
+        parent, request = _OPEN.get()
+        rec = self.record
+        rec["id"] = next(_IDS)
+        if self._new_request:
+            request = rec["id"]
+        rec["parent"], rec["request"] = parent, request
+        rec["tid"] = threading.get_native_id()
+        self._token = _OPEN.set((rec["id"], request))
+        rec["t0"] = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.record["t1"] = time.time_ns()
+        _OPEN.reset(self._token)
+        with _SPANS_LOCK:
+            _SPANS.append(self.record)
+        return False
+
+    def set(self, **attrs) -> None:
+        """Attributes known only once the span is open."""
+        self.record["attrs"].update(attrs)
+
+
+class _NoSpan:
+    """What ``span`` returns while the recorder is off."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, **attrs):
+    """A context manager recording ``name`` around its block as a child of
+    the open span, in the open request."""
+    if not _RECORDING:
+        return _NO_SPAN
+    return _Span(name, attrs)
+
+
+def request_span(name: str, **attrs):
+    """``span`` that starts a request: its own id is the request id of
+    every span opened inside it."""
+    if not _RECORDING:
+        return _NO_SPAN
+    return _Span(name, attrs, new_request=True)
+
+
+def traced(name: str):
+    """Decorator: every call of the function is a span ``name``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _RECORDING:
+                return fn(*args, **kwargs)
+            with _Span(name, {}):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def stamp() -> Optional[int]:
+    """``time.time_ns()`` while recording, else None: the start of a span
+    that ``record`` closes on another thread."""
+    return time.time_ns() if _RECORDING else None
+
+
+def record(name: str, t0: Optional[int], **attrs) -> None:
+    """Keep a span ``name`` from ``t0`` (``stamp()``) to now, on this
+    thread, as a child of the open span. Nothing for ``t0=None``."""
+    if not _RECORDING or t0 is None:
+        return
+    t1 = time.time_ns()
+    parent, request = _OPEN.get()
+    rec = {"id": next(_IDS), "name": name, "parent": parent,
+           "request": request, "tid": threading.get_native_id(),
+           "t0": t0, "t1": t1, "attrs": attrs}
+    with _SPANS_LOCK:
+        _SPANS.append(rec)
+
+
+def enable() -> None:
+    """Start recording spans."""
+    global _RECORDING
+    _RECORDING = True
+
+
+def disable() -> None:
+    """Stop recording; what was kept stays until ``clear``/``drain``."""
+    global _RECORDING
+    _RECORDING = False
+
+
+def clear() -> None:
+    """Forget every kept span."""
+    with _SPANS_LOCK:
+        _SPANS.clear()
+
+
+def drain() -> List[dict]:
+    """The spans kept so far, closed ones only, in the order they closed;
+    the recorder keeps none of them."""
+    global _SPANS
+    with _SPANS_LOCK:
+        out, _SPANS = _SPANS, []
+    return out
