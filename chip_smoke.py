@@ -55,6 +55,10 @@ result):
      beside its bound (engine/bound.py: the least time for this launch's
      work on this card), and the per-row survivor counts and float64
      final-balance sums of the slice and all-on probe and the grid chunk;
+     the body steps each tiled launch ran against all it had (a warp stops
+     once its paths are all ruined): none skipped in the slice, whose rows
+     live, or it fails; beside it config.json's own household at W 0-15
+     (a served search's first probe, ruined within ~30 months), timed;
   7. grid_kernel vs grid_plain on the card: that 16-row chunk at 1M paths,
      a ragged 3 rows x 1,000 paths and 11 rows whose W spread over 0-480
      at 65,536 paths (a block's rows end at different months; 11 rows is
@@ -1048,6 +1052,18 @@ def _print_rows(what, out):
           f"[{', '.join(f'{v:.17g}' for v in sums)}]")
 
 
+def _body_steps(out, n, R):
+    """(steps run, steps in range) of a tiled launch, in warp-months."""
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+
+    return int(out.steps.sum()), ck.body_steps_all(len(out.steps), n, R)
+
+
+def _steps_line(steps) -> str:
+    run, every = steps
+    return f"{run:,} / {every:,} (skipped {(1 - run / every) * 100:.2f}%)"
+
+
 def phase_timings(report):
     import numpy as np
     import torch
@@ -1118,6 +1134,25 @@ def phase_timings(report):
     print(f"[6]   success at W=0: {succ:.3f}%")
     _print_bounds(times, bounds, ("probe", "full", "simulate"))
     _print_rows("slice probe", probe_out)
+    # The tiled kernels stop a warp whose paths are all ruined. The slice's
+    # rows live through their 600 months, so it times the full work of its
+    # bound: its skip share must read 0. config.json's own household at the
+    # same W (a served search's first probe) is ruined within ~30 months.
+    house = Engine(_config(), device="cuda")
+    house_packed = house._pack(months16, "search")
+    times["probe_ruined"] = _time_ms(lambda: ck.probe(
+        house_packed, house.statics, house.retirement_years, n))
+    ruined_out = ck.probe(house_packed, house.statics, house.retirement_years, n)
+    steps = {"slice": _body_steps(probe_out, n, R),
+             "ruined": _body_steps(ruined_out, n, house.retirement_years)}
+    print(f"[6]   body steps run / in range (warp-months): slice "
+          f"{_steps_line(steps['slice'])}; config.json's own household at "
+          f"W=0-15 (success {ruined_out.counts.max().item() / n * 100:.3f}%): "
+          f"probe kernel {times['probe_ruined']:.3f} ms, "
+          f"{_steps_line(steps['ruined'])}")
+    if steps["slice"][0] != steps["slice"][1]:
+        raise AssertionError("[6] a warp of the slice stopped: it no longer "
+                             "times the full work of its bound")
 
     # The same scenario with every extension on (ALL_ON).
     eng_on = Engine(_config(retirement_years=50, initial_balance=1_500_000.0,
@@ -1148,7 +1183,8 @@ def phase_timings(report):
           f"{times['probe_plain_all_on']:.3f} ms")
     print(f"[6]   full kernel {times['full_all_on']:.3f} ms | plain "
           f"{times['full_plain_all_on']:.3f} ms")
-    print(f"[6]   success at W=0: {succ_on:.3f}%")
+    print(f"[6]   success at W=0: {succ_on:.3f}%; body steps "
+          f"{_steps_line(_body_steps(probe_on_out, n, R))}")
     _print_bounds(times, bounds, ("probe_all_on", "full_all_on"))
     _print_rows("all-on probe", probe_on_out)
     # Each extension alone: what it adds to the probe (min of 2).
@@ -1206,6 +1242,9 @@ def phase_timings(report):
           f"{walls[-1] - 16 * per_chunk:.1f} ms host and copies")
     _print_bounds(times, bounds, ("grid",))
     _print_rows("grid chunk", out)
+    steps["grid"] = _body_steps(out, n, GR)
+    print(f"[6]   grid chunk body steps {_steps_line(steps['grid'])}")
+    report["body_steps"] = steps
     if not (np.isfinite(res.success_probability).all()
             and res.final_balance_percentiles.shape == (len(all_configs), 5)):
         raise AssertionError("[6] the 256-variant grid's results are malformed")

@@ -275,14 +275,14 @@ def _bind(lib: ctypes.CDLL, unit: Optional[Unit]) -> None:
     elif unit.draws == "threefry":
         entries = {
             "mcrt_scan_rows": [vp, vp, vp, i, i, i, i, i, i, i, i, i, i, ll,
-                               vp, vp, vp, vp],
+                               vp, vp, vp, vp, vp],
             "mcrt_scan_full": [vp, vp, vp, i, i, i, i, i, i, ll, vp, vp, vp,
                                vp, vp],
         }
     else:
         entries = {
-            "mcrt_probe": [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp],
-            "mcrt_grid": [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp],
+            "mcrt_probe": [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp, vp],
+            "mcrt_grid": [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp, vp],
             "mcrt_full": [vp, vp, i, i, i, i, vp, vp, vp, vp, vp],
         }
     for name, argtypes in entries.items():

@@ -35,11 +35,26 @@
 //     one parameter block; the grid stores the normals, and with crashes
 //     the crash uniform and normal, and each row applies its own
 //     parameters); then each warp runs its row's months of the chunk from
-//     the tile, its accumulation months, then its retirement months. A
-//     block loops to the largest t_end of its rows; a warp whose row has
-//     ended, or has no row, still draws and meets every barrier, and votes
-//     0. engine/cuda_kernel.py (tile_plan) chooses C and M and the launch;
+//     the tile, its accumulation months, then its retirement months.
+//     engine/cuda_kernel.py (tile_plan) chooses C and M and the launch;
 //     the C entries check them.
+//   * Work stops where every path it serves is ruined. Most probes of the
+//     search hold rows whose paths are all ruined long before their t_end
+//     (W = 0 rows, and every W below the answer). A ruined path's carry is
+//     a fixed point of the retirement month (no growth, no sale, no
+//     rebalance, no tax, and the <= eps clamps already ran in the month it
+//     died), so its outputs are final. At the end of each retirement year
+//     and of each chunk a warp votes on its lanes' alive flags, and once
+//     none of its real paths lives it runs no further month of its row; at
+//     each chunk boundary the block votes over its warps, and once none has
+//     a month left it leaves the loop, draws included. A warp that is done,
+//     or has no row, still draws its share of each chunk the block runs,
+//     meets every barrier, and votes in the survivor ballot. The months
+//     each warp ran are counted (the `steps` buffer beside `counts`). On
+//     launches whose paths all live, a vote after every month cost 3-5%,
+//     a yearly one 1-2%, and one at chunk ends nothing, but that one runs
+//     a row ruined within two years for a whole chunk of 64 months
+//     (PERF.md §6): the warps vote yearly and at chunk ends.
 //     `__launch_bounds__(512, 2)` holds a 16-row block to 64 registers, two
 //     blocks per SM: the heaviest Statics (all-on, six streams) spill a few
 //     bytes and still run 11-17% faster than at their free 92-97 registers
@@ -898,16 +913,21 @@ __device__ __forceinline__ void tile_growth(const Scenario<T>& sc, const T* t,
 // Block (bx, by) holds rows by*C .. by*C+C-1 and paths bx*32 .. bx*32+31;
 // warp v of the block serves row by*C + v (cuda_kernel.TilePlan.cell mirrors
 // this). Dynamic shared memory: the draw tile [M][FIELDS][32] of T, then
-// the block's largest t_end. A warp beyond the last row reads the last
-// row's parameters, runs no month and writes nothing. ``paths`` gives each
-// path its draws; a row accumulates months 1..min(W, acc_cap) (the scan's
-// cap; the Philox kernels have none) and retires months W+1..t_end.
+// the block's largest t_end, the last month it may draw. A warp beyond the
+// last row reads the last row's parameters, runs no month and writes
+// nothing. ``paths`` gives each path its draws; a row accumulates months
+// 1..min(W, acc_cap) (the scan's cap; the Philox kernels have none) and
+// retires months W+1..t_end, until its warp finds none of its paths alive
+// at the end of a retirement year or of a chunk (a retirement month always
+// runs before the first vote: it settles a path that the snapshot killed).
+// counts[row] gets the row's survivors, steps[row] the retirement months
+// its warps ran.
 template <bool GRID, class T, class Paths>
 __device__ __forceinline__ void tile_body(
     const T* __restrict__ fp, const int* __restrict__ ip, int n_rows,
     int n, int rows_per_block, int months_per_chunk, const Paths& paths,
     int acc_cap, T* __restrict__ success, T* __restrict__ final_bal,
-    int* __restrict__ counts) {
+    int* __restrict__ counts, int* __restrict__ steps) {
   constexpr int FIELDS = GRID ? kGridFields : kProbeFields;
   constexpr int P = kWarp;  // paths per block
   extern __shared__ __align__(8) unsigned char smem_raw[];
@@ -937,6 +957,9 @@ __device__ __forceinline__ void tile_body(
 
   const Scenario<T> sc(GRID ? fp + static_cast<size_t>(my_row) * kRow : fp);
   Carry<T> c = start_path(sc, w, key);
+  // The last month this warp runs (warp-uniform): its row's t_end, or the
+  // month of the vote that found none of its paths alive.
+  int end = t_end;
 
   for (int m0 = 1; m0 <= t_max; m0 += M) {
     const int mc = min(M, t_max - m0 + 1);
@@ -962,20 +985,32 @@ __device__ __forceinline__ void tile_body(
       }
     }
     __syncthreads();
-    // Body phase: each warp runs its row's months of the chunk, its
-    // accumulation months, the snapshot, then its retirement months.
-    const int m_last = min(m0 + mc - 1, t_end);
+    // Body phase: each warp runs its row's months of the chunk up to its
+    // end: its accumulation months, the snapshot, then its retirement
+    // months, a year or the rest of the chunk at a time.
+    const int m_last = min(m0 + mc - 1, end);
     T g1, gi, g2;
     for (int m = m0; m <= min(m_last, w_acc); ++m) {
       tile_growth<GRID>(sc, tile + (m - m0) * FIELDS * P + j, g1, gi, g2);
       accum_month(sc, c, m, g1, gi, g2);
     }
     if (m0 <= w + 1 && w + 1 <= m_last) snapshot(c);
-    for (int m = max(m0, w + 1); m <= m_last; ++m) {
-      tile_growth<GRID>(sc, tile + (m - m0) * FIELDS * P + j, g1, gi, g2);
-      retire_month<false>(sc, c, m, w, t_end, g1, gi, g2, Records<T>{});
+    for (int m = max(m0, w + 1); m <= m_last;) {
+      // To the end of this retirement year or of the chunk; then the warp
+      // votes on its paths.
+      const int m_vote = min(m_last, m + kMonths - 1 - (m - w - 1) % kMonths);
+      for (; m <= m_vote; ++m) {
+        tile_growth<GRID>(sc, tile + (m - m0) * FIELDS * P + j, g1, gi, g2);
+        retire_month<false>(sc, c, m, w, t_end, g1, gi, g2, Records<T>{});
+      }
+      if (!__any_sync(0xffffffffu, p < n && c.alive_f > T(0.5))) {
+        end = m_vote;
+        break;
+      }
     }
-    __syncthreads();  // the tile is read before the next chunk's draws
+    // The tile is read before the next chunk's draws; the block draws on
+    // while one of its warps has a month left.
+    if (!__syncthreads_or(end >= m0 + mc)) break;
   }
   if (t_end <= w) snapshot(c);  // a row without retirement months
 
@@ -989,7 +1024,10 @@ __device__ __forceinline__ void tile_body(
   // Survivors: one ballot per warp (= per row of the block), one atomic per
   // (block, row); padding lanes and rowless warps vote 0.
   const unsigned ballot = __ballot_sync(0xffffffffu, alive_i);
-  if (j == 0 && has_row) atomicAdd(counts + row, __popc(ballot));
+  if (j == 0 && has_row) {
+    atomicAdd(counts + row, __popc(ballot));
+    atomicAdd(steps + row, max(end - w, 0));  // the retirement months run
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1159,10 +1197,10 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
     probe_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
                  int n_rows, int n, int rows_per_block, int months_per_chunk,
                  float* __restrict__ success, float* __restrict__ final_bal,
-                 int* __restrict__ counts) {
+                 int* __restrict__ counts, int* __restrict__ steps) {
   const PhiloxPaths paths{static_cast<uint32_t>(ip[I_SEED]), ip[I_BLOCK_OFF]};
   tile_body<false>(fp, ip, n_rows, n, rows_per_block, months_per_chunk, paths,
-                   0, success, final_bal, counts);
+                   0, success, final_bal, counts, steps);
 }
 
 // One parameter row per scenario (fp: K rows of F.NUM + 5*S floats).
@@ -1170,10 +1208,10 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
     grid_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
                 int n_rows, int n, int rows_per_block, int months_per_chunk,
                 float* __restrict__ success, float* __restrict__ final_bal,
-                int* __restrict__ counts) {
+                int* __restrict__ counts, int* __restrict__ steps) {
   const PhiloxPaths paths{static_cast<uint32_t>(ip[I_SEED]), ip[I_BLOCK_OFF]};
   tile_body<true>(fp, ip, n_rows, n, rows_per_block, months_per_chunk, paths,
-                  0, success, final_bal, counts);
+                  0, success, final_bal, counts, steps);
 }
 
 __global__ void __launch_bounds__(kFullThreads)
@@ -1198,10 +1236,11 @@ __global__ void __launch_bounds__(kTileThreads, kScanTileBlocks)
                      const uint32_t* __restrict__ keys, int n_rows, int n,
                      int rows_per_block, int months_per_chunk, int acc_cap,
                      long long row_offset, Real* __restrict__ success,
-                     Real* __restrict__ final_bal, int* __restrict__ counts) {
+                     Real* __restrict__ final_bal, int* __restrict__ counts,
+                     int* __restrict__ steps) {
   const ScanPaths<Real> paths{keys, row_offset};
   tile_body<!SHARED>(fp, ip, n_rows, n, rows_per_block, months_per_chunk,
-                     paths, acc_cap, success, final_bal, counts);
+                     paths, acc_cap, success, final_bal, counts, steps);
 }
 
 __global__ void __launch_bounds__(kFullThreads)
@@ -1243,7 +1282,7 @@ template <bool GRID>
 int launch_tiles(const void* fp, const void* ip, int n_rows, int n_paths,
                  int n_streams, int rows_per_block, int months_per_chunk,
                  int fields, int smem_bytes, void* success, void* final_bal,
-                 void* counts, void* stream) {
+                 void* counts, void* steps, void* stream) {
   if (!tile_plan_ok(n_rows, n_paths, n_streams, rows_per_block,
                     months_per_chunk, fields,
                     GRID ? kGridFields : kProbeFields, smem_bytes, 4))
@@ -1258,7 +1297,7 @@ int launch_tiles(const void* fp, const void* ip, int n_rows, int n_paths,
       static_cast<const float*>(fp), static_cast<const int*>(ip), n_rows,
       n_paths, rows_per_block, months_per_chunk,
       static_cast<float*>(success), static_cast<float*>(final_bal),
-      static_cast<int*>(counts));
+      static_cast<int*>(counts), static_cast<int*>(steps));
   return static_cast<int>(cudaGetLastError());
 }
 #endif
@@ -1291,22 +1330,26 @@ int mcrt_jvp(const void* fp, const void* fp_dot, const void* ip,
   return static_cast<int>(cudaGetLastError());
 }
 #elif !MCRT_THREEFRY
+// counts and steps: (K,) int32, zeroed by the caller; each row gets its
+// survivors and the retirement months its warps ran.
 int mcrt_probe(const void* fp, const void* ip, int n_cand, int n_paths,
                int n_streams, int rows_per_block, int months_per_chunk,
                int fields, int smem_bytes, void* success, void* final_bal,
-               void* counts, void* stream) {
+               void* counts, void* steps, void* stream) {
   return launch_tiles<false>(fp, ip, n_cand, n_paths, n_streams,
                              rows_per_block, months_per_chunk, fields,
-                             smem_bytes, success, final_bal, counts, stream);
+                             smem_bytes, success, final_bal, counts, steps,
+                             stream);
 }
 
 int mcrt_grid(const void* fp, const void* ip, int n_rows, int n_paths,
               int n_streams, int rows_per_block, int months_per_chunk,
               int fields, int smem_bytes, void* success, void* final_bal,
-              void* counts, void* stream) {
+              void* counts, void* steps, void* stream) {
   return launch_tiles<true>(fp, ip, n_rows, n_paths, n_streams,
                             rows_per_block, months_per_chunk, fields,
-                            smem_bytes, success, final_bal, counts, stream);
+                            smem_bytes, success, final_bal, counts, steps,
+                            stream);
 }
 
 int mcrt_full(const void* fp, const void* ip, int n_paths,
@@ -1330,7 +1373,7 @@ int mcrt_scan_rows(const void* fp, const void* ip, const void* keys,
                    int rows_per_block, int months_per_chunk, int fields,
                    int smem_bytes, int elem_bytes, int acc_cap,
                    long long row_offset, void* success, void* final_bal,
-                   void* counts, void* stream) {
+                   void* counts, void* steps, void* stream) {
   if (elem_bytes != static_cast<int>(sizeof(Real)) || row_offset < 0 ||
       !tile_plan_ok(n_rows, n_paths, n_streams, rows_per_block,
                     months_per_chunk, fields,
@@ -1347,7 +1390,8 @@ int mcrt_scan_rows(const void* fp, const void* ip, const void* keys,
       static_cast<const Real*>(fp), static_cast<const int*>(ip),
       static_cast<const uint32_t*>(keys), n_rows, n_paths, rows_per_block,
       months_per_chunk, acc_cap, row_offset, static_cast<Real*>(success),
-      static_cast<Real*>(final_bal), static_cast<int*>(counts));
+      static_cast<Real*>(final_bal), static_cast<int*>(counts),
+      static_cast<int*>(steps));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,6 +31,11 @@ The probe and grid kernels draw each path-month once for all the rows of
 a block and share it through shared memory; :func:`tile_plan` decides
 their launch (rows and paths per block, months per draw tile) and
 :func:`tile_work` counts the work behind their bound (``engine/bound.py``).
+A warp of them stops its retirement months once it finds its 32 paths
+all ruined (it looks at the end of each retirement year and of each
+tile), and a block its month loop once its warps are all done; each
+launch counts the retirement months its warps ran (``ProbeOut.steps``,
+``BODY_STEPS``), and so does each plain version.
 
 Beside each wrapper is its plain PyTorch version (:func:`probe_plain`,
 :func:`grid_plain`, :func:`simulate_plain`, :func:`simulate_full_plain`,
@@ -76,6 +81,13 @@ LAUNCHES: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0,
                             "scan": 0, "ad": 0}
 PLAIN_CALLS: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0,
                                "scan": 0, "ad": 0}
+# Retirement months the tiled month loop ran, in warp-months (one warp of
+# 32 paths of one row for one month), against all it had: [run, in range]
+# per kernel, since the last reset. A warp stops once its paths are all
+# ruined, so run / in range is the share of the body's work left. Added
+# where the program copies a launch's counts to the host (record_steps):
+# the steps travel in that copy.
+BODY_STEPS: Dict[str, list] = {"probe": [0, 0], "grid": [0, 0], "scan": [0, 0]}
 _COUNT_LOCK = threading.Lock()
 
 # Rows of a probe or grid launch: groups of rows ride gridDim.y.
@@ -94,11 +106,28 @@ def reset_counts() -> None:
         for d in (LAUNCHES, PLAIN_CALLS):
             for key in d:
                 d[key] = 0
+        for key in BODY_STEPS:
+            BODY_STEPS[key] = [0, 0]
 
 
 def _count(counts: Dict[str, int], key: str) -> None:
     with _COUNT_LOCK:
         counts[key] += 1
+
+
+def body_steps_all(rows: int, n_paths: int, retirement_years: int) -> int:
+    """The retirement body steps a tiled launch of ``rows`` x ``n_paths``
+    has in range: every warp of every row, every retirement month."""
+    return int(rows) * -(-int(n_paths) // WARP) * MONTHS_PER_YEAR * int(retirement_years)
+
+
+def record_steps(kind: str, run: int, in_range: int) -> Dict[str, int]:
+    """Add launches' body steps to ``BODY_STEPS[kind]``; returns them as
+    the attributes of the span of their copy to the host."""
+    with _COUNT_LOCK:
+        BODY_STEPS[kind][0] += int(run)
+        BODY_STEPS[kind][1] += int(in_range)
+    return {"steps_run": int(run), "steps_all": int(in_range)}
 
 
 class F:
@@ -402,6 +431,9 @@ class ProbeOut(NamedTuple):
     counts: torch.Tensor  # (K,) int64 — surviving paths per candidate/row
     success: torch.Tensor  # (K, n) float 0/1 alive flags
     final_balance: torch.Tensor  # (K, n)
+    # (K,) int64 — retirement months run per row, in warp-months (row 1 of
+    # the kernel's buffer whose row 0 is ``counts``); None where not counted
+    steps: Optional[torch.Tensor] = None
 
 
 class SimulateOut(NamedTuple):
@@ -473,11 +505,12 @@ def tile_plan(rows: int, n_paths: int, statics: Statics, kind: str,
 
 def tile_work(plan: TilePlan, working_months, t_end,
               acc_cap: Optional[int] = None) -> Dict[str, int]:
-    """The least work of one tiled launch, counted as the kernel does it:
-    ``draws`` charges each path-month once per block, over the block's real
-    paths, up to the largest t_end of its rows; ``accum`` and ``retire``
-    charge each row's body once per (row, path, month) up to the row's own
-    W (or the scan's ``acc_cap``, where lower) and t_end."""
+    """The least work of one tiled launch whose paths live, counted as the
+    kernel does it: ``draws`` charges each path-month once per block, over
+    the block's real paths, up to the largest t_end of its rows; ``accum``
+    and ``retire`` charge each row's body once per (row, path, month) up to
+    the row's own W (or the scan's ``acc_cap``, where lower) and t_end. A
+    warp whose paths are all ruined runs less (``ProbeOut.steps``)."""
     t = [int(v) for v in t_end]
     w_ret = [int(v) for v in working_months]
     w = w_ret if acc_cap is None else [min(v, int(acc_cap)) for v in w_ret]
@@ -506,27 +539,38 @@ def _launch_rows(entry: str, packed: Packed, statics: Statics,
     dev = packed.device
     success = torch.empty((K, n), dtype=torch.float32, device=dev)
     final = torch.empty((K, n), dtype=torch.float32, device=dev)
-    counts = torch.zeros(K, dtype=torch.int32, device=dev)
+    tally = torch.zeros((2, K), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             packed.fp.data_ptr(), packed.ip.data_ptr(), K, n,
             packed.n_streams, plan.rows_per_block, plan.months_per_chunk,
             plan.fields, plan.smem_bytes,
-            success.data_ptr(), final.data_ptr(), counts.data_ptr(),
-            _stream_ptr(dev),
+            success.data_ptr(), final.data_ptr(), tally[0].data_ptr(),
+            tally[1].data_ptr(), _stream_ptr(dev),
         )
     _build.check(lib, rc, f"{entry} launch")
-    return ProbeOut(counts.to(torch.int64), success, final)
+    return _rows_out(tally, success, final)
+
+
+def _rows_out(tally: torch.Tensor, success: torch.Tensor,
+              final: torch.Tensor) -> ProbeOut:
+    """A tiled launch's outputs: survivors and body steps, rows of its
+    (2, K) int32 tally, as int64."""
+    tally = tally.to(torch.int64)
+    return ProbeOut(tally[0], success, final, tally[1])
+
+
+def _plain_out(out: Dict[str, torch.Tensor]) -> ProbeOut:
+    counts = (out["success"] > 0.5).sum(dim=1)
+    return ProbeOut(counts, out["success"], out["final_balance"], out["steps"])
 
 
 def _plain_rows(packed: Packed, statics: Statics, retirement_years: int,
                 n_paths: int, shocks: Optional[torch.Tensor]) -> ProbeOut:
     from . import kernel
 
-    out = kernel.simulate(packed, statics, retirement_years, n_paths,
-                          shocks=shocks)
-    counts = (out["success"] > 0.5).sum(dim=1)
-    return ProbeOut(counts, out["success"], out["final_balance"])
+    return _plain_out(kernel.simulate(packed, statics, retirement_years,
+                                      n_paths, shocks=shocks))
 
 
 # ---------------------------------------------------------------------------
@@ -735,7 +779,7 @@ def scan_rows(packed: Packed, statics: Statics, retirement_years: int,
     keys = _scan_launch_keys(packed, statics, stream_key)
     success = torch.empty((K, n), dtype=fp.dtype, device=dev)
     final = torch.empty((K, n), dtype=fp.dtype, device=dev)
-    counts = torch.zeros(K, dtype=torch.int32, device=dev)
+    tally = torch.zeros((2, K), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.mcrt_scan_rows(
             fp.data_ptr(), packed.ip.data_ptr(), keys.data_ptr(), K, n,
@@ -743,11 +787,11 @@ def scan_rows(packed: Packed, statics: Statics, retirement_years: int,
             plan.months_per_chunk, plan.fields, plan.smem_bytes,
             plan.elem_bytes, int(t_scan) - MONTHS_PER_YEAR * int(retirement_years),
             int(row_offset), success.data_ptr(), final.data_ptr(),
-            counts.data_ptr(), _stream_ptr(dev),
+            tally[0].data_ptr(), tally[1].data_ptr(), _stream_ptr(dev),
         )
     _build.check(lib, rc, "scan_rows_kernel launch")
     _count(LAUNCHES, "scan")
-    return ProbeOut(counts.to(torch.int64), success, final)
+    return _rows_out(tally, success, final)
 
 
 def scan_rows_plain(packed: Packed, statics: Statics, retirement_years: int,
@@ -758,10 +802,9 @@ def scan_rows_plain(packed: Packed, statics: Statics, retirement_years: int,
     from . import kernel
 
     _count(PLAIN_CALLS, "scan")
-    out = kernel.scan_chain(packed, statics, retirement_years, n_paths,
-                            stream_key, t_scan=t_scan, row_offset=row_offset)
-    counts = (out["success"] > 0.5).sum(dim=1)
-    return ProbeOut(counts, out["success"], out["final_balance"])
+    return _plain_out(kernel.scan_chain(packed, statics, retirement_years,
+                                        n_paths, stream_key, t_scan=t_scan,
+                                        row_offset=row_offset))
 
 
 def scan_full(packed: Packed, statics: Statics, retirement_years: int,

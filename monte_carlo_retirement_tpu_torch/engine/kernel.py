@@ -61,6 +61,7 @@ from ..ops.tax import (
     withdraw_pro_rata,
 )
 from .cuda_kernel import (
+    WARP,
     F,
     Packed,
     Statics,
@@ -68,6 +69,7 @@ from .cuda_kernel import (
     _iparams,
     require_device,
     scan_full,
+    tile_plan,
 )
 from .cuda_kernel import scan_rows as scan_rows_kernel
 
@@ -111,15 +113,22 @@ def simulate(
     shocks: Optional[torch.Tensor] = None,
     draws: Optional["ScanDraws"] = None,
     acc_months: Optional[int] = None,
+    carry: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Run the month loop for every candidate row of ``packed``.
 
     ``packed.fp`` is one parameter block shared by the candidates (the
     probe) or one row per candidate (the scenario grid). Returns
-    ``success`` and ``final_balance`` of shape (K, n); with
-    ``traj_len > 0`` (one candidate only) also the tracked per-path vectors
-    (n,) and the series ``trajectory``/``price_levels`` (n, traj_len) and
-    ``withdrawal_rates`` (n, R).
+    ``success`` and ``final_balance`` of shape (K, n) and ``steps`` (K,),
+    the retirement months the tiled kernels run for each row, in
+    warp-months: a warp of 32 consecutive paths runs its retirement months
+    until it finds none of its paths alive where it looks, at the end of
+    each retirement year and of each chunk of months the launch draws at
+    once (``tile_plan``). With ``carry`` also the loop's last state, a
+    dict of (K, n) tensors by field (its carry). With ``traj_len > 0``
+    (one candidate only) it returns the tracked per-path vectors (n,) and
+    the series ``trajectory``/``price_levels`` (n, traj_len) and
+    ``withdrawal_rates`` (n, R) instead.
 
     The draws come from ``shocks`` (injected), from ``draws`` (the scan
     engine's threefry stream, month by month) or else from the Philox
@@ -473,10 +482,27 @@ def simulate(
         w_min, w_max = min(w_list), max(w_list)
         acc_max = max(acc_end)
         acc_t = torch.tensor(acc_end, dtype=torch.int64, device=dev)[:, None]
+        warps = -(-n // WARP)
+        chunk = tile_plan(K, n, statics, "probe").months_per_chunk
+        stopped = torch.zeros((K, warps), dtype=torch.bool, device=dev)
+        steps = torch.zeros(K, dtype=torch.int64, device=dev)
         for m in range(1, max(t_end_list) + 1):
             g = draw(m)
             acc_st = accum_month(m, st, g) if m <= acc_max else None
-            ret_st = ret_month(m, st, g) if m > w_min else None
+            ret_st = None
+            if m > w_min:
+                # A warp looks at its paths after a retirement month that
+                # ends a retirement year or a chunk, and stops if none lives.
+                v = m - 1
+                looks = (v > w_t) & (((v - w_t) % Y == 0) | (v % chunk == 0))
+                if bool(looks.any()):
+                    live = torch.nn.functional.pad(st["alive"] > 0.5,
+                                                   (0, warps * WARP - n))
+                    live = live.reshape(K, warps, WARP).any(dim=2)
+                    stopped = stopped | (looks & ~live)
+                runs = ~stopped & (m > w_t) & (m <= t_end_t)
+                steps = steps + runs.sum(dim=1)
+                ret_st = ret_month(m, st, g)
             if ret_st is None and m <= min(acc_end):
                 st = acc_st
             elif acc_st is None and w_max < m <= min(t_end_list):
@@ -502,6 +528,10 @@ def simulate(
         "success": st["alive"],
         "final_balance": torch.clamp(st["b1"] + st["b2"], min=0.0),
     }
+    if not track:
+        out["steps"] = steps
+        if carry:
+            out["carry"] = st
     if track:
         ytr = torch.where(st["alive"] > 0.5, math.nan, st["ytr"] / Y)
         out = {
@@ -656,7 +686,8 @@ def scan_rows(params, months: Sequence[int], stream_key, *, n_paths: int,
     shared draws: ``params`` shared by the rows (the vmapped probe,
     ``runner.py::_probe_impl``) or one row each (a stacked batch,
     ``scenario_batch.py::_batch_impl``). Returns success (0/1) and final
-    balance (K, n), plus the tracked fields for ``traj_len > 0`` (one row).
+    balance (K, n) and the retirement months run per row (``steps``, in
+    warp-months), or the tracked fields for ``traj_len > 0`` (one row).
     On the card it launches the scan kernel (``cuda_kernel.scan_rows`` /
     ``scan_full``) or raises; on the CPU it runs their plain chain.
 
@@ -671,7 +702,8 @@ def scan_rows(params, months: Sequence[int], stream_key, *, n_paths: int,
                          t_scan=t_scan, row_offset=row_offset)
     out = scan_rows_kernel(packed, statics, R, n_paths, stream_key,
                            t_scan=t_scan, row_offset=row_offset)
-    return {"success": out.success, "final_balance": out.final_balance}
+    return {"success": out.success, "final_balance": out.final_balance,
+            "steps": out.steps}
 
 
 def simulate_paths(params, working_months, stream_key, *, n_paths: int,

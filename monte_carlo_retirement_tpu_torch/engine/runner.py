@@ -80,8 +80,10 @@ from ..timing import expected_trajectory_length
 from ..utils import profiling
 from .cuda_kernel import (
     VECTOR_FIELDS,
+    body_steps_all,
     pack_params,
     probe as probe_kernel,
+    record_steps,
     require_device,
     simulate_full,
     statics_from_config,
@@ -420,8 +422,12 @@ class Engine:
         for s in shards:
             rows = scan_rows(self.params, padded, self._key(stream),
                              t_scan=t_scan, **self._scan_kwargs(per, s))
-            parts.append((rows["success"][:, :s.paths] > 0.5).sum(dim=1))
-        counts = sum(p.cpu() for p in parts)
+            survivors = (rows["success"][:, :s.paths] > 0.5).sum(dim=1)
+            parts.append(torch.stack((survivors, rows["steps"])))
+        tally = sum(p.cpu() for p in parts)
+        record_steps("scan", tally[1].sum(), len(shards) * body_steps_all(
+            len(padded), per, self.retirement_years))
+        counts = tally[0]
         if self.mesh is not None and self.mesh.grouped:
             counts = distributed.all_reduce(counts, "sum")
         return counts.numpy(), n_total
@@ -445,20 +451,27 @@ class Engine:
 
     def _probe_counts(self, padded: List[int], stream: str, n_total: int):
         """Survivors per candidate over exactly ``n_total`` paths, in
-        launches of at most ``max_probe_paths()``."""
+        launches of at most ``max_probe_paths()``; the launches' body steps
+        come back in the same copy (``cuda_kernel.BODY_STEPS``)."""
         budget = max(BLOCK_PATHS, (max_probe_paths() // BLOCK_PATHS) * BLOCK_PATHS)
-        counts, offset = None, 0
+        tally, offset, steps_all = None, 0, 0
         for start in range(0, n_total, budget):
             cn = min(budget, n_total - start)
-            part = probe_kernel(
+            out = probe_kernel(
                 self._pack(padded, stream, block_offset=offset),
                 self.statics, self.retirement_years, cn,
-            ).counts
-            counts = part if counts is None else counts + part
+            )
+            # A wrapper of the kernel may hand back its counts alone.
+            part = (out.counts[None] if out.steps is None
+                    else torch.stack((out.counts, out.steps)))
+            tally = part if tally is None else tally + part
+            steps_all += body_steps_all(len(padded), cn, self.retirement_years)
             offset += -(-cn // BLOCK_PATHS)
-        with profiling.span("card.sync", what="probe"):
-            counts = counts.cpu().numpy()
-        return counts, n_total
+        with profiling.span("card.sync", what="probe") as sync:
+            tally = tally.cpu().numpy()
+            if len(tally) > 1:
+                sync.set(**record_steps("probe", tally[1].sum(), steps_all))
+        return tally[0], n_total
 
     def _probe_counts_mesh(self, padded: List[int], stream: str, n_total: int):
         """Survivors per candidate over every path the mesh simulates (the

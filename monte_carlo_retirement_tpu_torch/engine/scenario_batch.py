@@ -50,9 +50,11 @@ from ..parallel.mesh import PathMesh, mesh_device
 from ..utils import profiling
 from .cuda_kernel import (
     Statics,
+    body_steps_all,
     check_grid_statics,
     grid,
     pack_grid,
+    record_steps,
     require_device,
     statics_from_config,
 )
@@ -128,11 +130,15 @@ def _grid_stream_seed(seed: int) -> int:
     return int(state[0] % (2**31))
 
 
-def _stats_table(stats) -> torch.Tensor:
-    """The five statistics as one (k, 9) float64 table: one copy to host."""
+def _stats_table(stats, steps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The five statistics as one (k, 9) float64 table, and with the
+    launch's body ``steps`` (k,) a tenth column: one copy to host."""
     p, med, mean, sigma, pcts = stats
     cols = [p, med.to(torch.float64), mean, sigma]
-    return torch.cat([torch.stack(cols, dim=1), pcts.to(torch.float64)], dim=1)
+    parts = [torch.stack(cols, dim=1), pcts.to(torch.float64)]
+    if steps is not None:
+        parts.append(steps.to(torch.float64)[:, None])
+    return torch.cat(parts, dim=1)
 
 
 def _from_table(table: np.ndarray) -> ScenarioBatchResult:
@@ -141,7 +147,7 @@ def _from_table(table: np.ndarray) -> ScenarioBatchResult:
         median_final_balance=table[:, 1],
         mean_final_balance=table[:, 2],
         success_sigma=table[:, 3],
-        final_balance_percentiles=table[:, 4:],
+        final_balance_percentiles=table[:, 4:9],
     )
 
 
@@ -217,15 +223,18 @@ def run_scenario_grid(
     done = 0
     t0 = time.perf_counter()
     parts: List[ScenarioBatchResult] = []
-    # (k, (k, 9) table on the device, or the scan's result), oldest first
+    # (k, (k, 9) table on the device, or the scan's result, the body steps
+    # in range), oldest first
     pending: list = []
 
     def collect_one():
         nonlocal done
-        k, table = pending.pop(0)
+        k, table, steps_all = pending.pop(0)
         if not isinstance(table, ScenarioBatchResult):
-            with profiling.span("card.sync", what="grid"):
+            with profiling.span("card.sync", what="grid") as sync:
                 host = table.cpu().numpy()
+                if host.shape[1] > 9:
+                    sync.set(**record_steps("grid", host[:, 9].sum(), steps_all))
             table = _from_table(host)
         parts.append(table)
         done += k
@@ -248,6 +257,7 @@ def run_scenario_grid(
         params = stack_params(chunk_cfgs)
         check_grid_statics(params, statics)
         months = working_months[i : i + chunk_size]
+        steps_all = 0
         if backend == "scan":
             # JAX's scan branch: its run_scenario_batch at its default
             # float32, every chunk on one horizon.
@@ -266,8 +276,9 @@ def run_scenario_grid(
                 # gives, so the reductions see the same layout.
                 succ = out.success[:, :n].contiguous()
                 fin = out.final_balance[:, :n].contiguous()
-            stats = _stats_table(_grid_stats(succ, fin, n))
-        pending.append((len(chunk_cfgs), stats))
+            stats = _stats_table(_grid_stats(succ, fin, n), out.steps)
+            steps_all = body_steps_all(len(chunk_cfgs), out.success.shape[1], R)
+        pending.append((len(chunk_cfgs), stats, steps_all))
         while len(pending) > window:
             collect_one()
     while pending:

@@ -136,15 +136,18 @@ def grid_raw_sharded(params_batch: SimParams, seed: int, months,
                      mesh: PathMesh, dtype=None) -> ProbeOut:
     """Scenario grid over the mesh returning the per-path tables: survivors
     (K,) over every simulated path, success and final balance (K, n_dev *
-    local_pad) on the mesh's first device."""
+    local_pad) on the mesh's first device, and the body steps (K,) of every
+    shard's launch."""
     check_grid_statics(params_batch, statics)
     _, outs = _launch_per_shard(grid, pack_grid, params_batch, seed, months,
                                 retirement_years, n_paths, statics, mesh,
                                 dtype=dtype)
-    counts = torch.as_tensor(_sum_counts([o.counts for o in outs], mesh))
-    return ProbeOut(counts.to(mesh.device),
+    tally = torch.as_tensor(_sum_counts(
+        [torch.stack((o.counts, o.steps)) for o in outs], mesh)).to(mesh.device)
+    return ProbeOut(tally[0],
                     gather_paths([o.success for o in outs], mesh, dim=1),
-                    gather_paths([o.final_balance for o in outs], mesh, dim=1))
+                    gather_paths([o.final_balance for o in outs], mesh, dim=1),
+                    tally[1])
 
 
 def simulate_sharded(params: SimParams, seed: int, working_months: int,
