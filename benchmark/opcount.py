@@ -1,23 +1,29 @@
 """The essential operations of the month loop, counted on the reference.
 
-``count(config)`` runs one accumulation month and one retirement month of
-``reference/loop.py`` on one row of paths under a dispatch mode and counts,
+``count(config)`` runs a year of accumulation months and a year of
+retirement months of ``reference/loop.py`` on one row of paths under a
+dispatch mode, each month from the same state, and counts,
 per path, one operation for each arithmetic operation, comparison, select,
 conversion and transcendental; a multiply whose only consumer is an add or
 subtract counts with it as one; negations (a sign bit on an operand),
 logical operations on masks, copies, fills and indexing count nothing. A
 draw is priced from the Philox4x32-10 algorithm itself
-(``reference/philox.py``), not from its 16-bit emulation in torch; the
+(``reference/philox.py``), not from its 16-bit emulation in torch
+(``draw_ops``, with a crash's draws more); the
 gross factors of a path-month (two products, three multiply-adds, three
-exponentials and the asset-2 product) count once per path-month. The
-tracked run's extras (yearly records) are counted over a whole year and
-spread over its months. The counts are frozen in each
+exponentials and the asset-2 product, with a crash's jump more) count once
+per path-month. Work done once a year (a gain bill, a guardrail's step,
+the tracked run's records) is spread over the year's months: the second
+retirement year's for ``retirement``, the first's for
+``tracked_retirement``, where the first-year records fall (a guardrail
+steps first at the second year's start, so its step is not in that
+count). The counts are frozen in each
 ``configs/<config>.json`` under ``essential_ops``; ``tests`` recompute them.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -30,6 +36,8 @@ COUNTED = {
     "where", "exp", "log", "log1p", "sqrt", "bitwise_right_shift", "__rshift", "_to_copy",
 }
 FUSING = {"add", "sub", "rsub"}
+# A uniform from its word: the shift, the conversion and the product.
+OPS_PER_UNIFORM = 3
 
 
 class _Counter(TorchDispatchMode):
@@ -98,9 +106,19 @@ def _per_path(fn, n: int) -> float:
     return c.total(list(_tensors(result))) / n
 
 
-def draw_ops() -> int:
-    """A path-month's Philox draw and its three normals."""
-    return philox.ROUNDS * philox.OPS_PER_ROUND + philox.NORMALS_PER_DRAW * philox.OPS_PER_NORMAL
+def draw_ops(config: Optional[dict] = None) -> float:
+    """A path-month's Philox draw and its three normals; with crashes, the
+    uniform of word 3 and a second draw's normal. An antithetic pair
+    shares one draw, counted once for its two paths, and its second path
+    reflects the crash uniform (one subtraction). The lifetime's draw,
+    once per path, is not counted."""
+    rules = loop.structure(config) if config is not None else None
+    ops = philox.ROUNDS * philox.OPS_PER_ROUND + philox.NORMALS_PER_DRAW * philox.OPS_PER_NORMAL
+    if rules and rules.jumps:
+        ops += OPS_PER_UNIFORM + philox.ROUNDS * philox.OPS_PER_ROUND + philox.OPS_PER_NORMAL
+    if rules and rules.antithetic:
+        ops = ops / 2.0 + (0.5 if rules.jumps else 0.0)
+    return float(ops)
 
 
 def count(config: dict, n: int = 4096) -> Dict[str, float]:
@@ -115,16 +133,16 @@ def count(config: dict, n: int = 4096) -> Dict[str, float]:
     st = run.initial(1)
     st_acc = run.accumulate(1, st, g)
 
-    factors = _per_path(lambda: run.draw(1), n) - _per_path(
-        lambda: philox.month_normals(7, run.block, run.lane, 1), n)
-    out = {
-        "draw": float(draw_ops()),
-        "factors": factors,
-        "accumulation": _per_path(lambda: run.accumulate(1, st, g), n),
-        "retirement": _per_path(lambda: run.retire(w + 1, st_acc, g), n),
-    }
-
     acc_year = _per_path(lambda: [run.accumulate(m, st, g) for m in range(1, 13)], n)
+    out = {
+        "draw": draw_ops(cfg),
+        # The first draw(1) drew the month: this counts its factors alone.
+        "factors": _per_path(lambda: run.draw(1), n),
+        "accumulation": acc_year / 12.0,
+        # The second retirement year, the first with a year-start month.
+        "retirement": _per_path(
+            lambda: [run.retire(m, st_acc, g) for m in range(w + 13, w + 25)], n) / 12.0,
+    }
     # The tracked accumulation adds one sum of the balances a year.
     out["tracked_accumulation"] = (acc_year + 1.0) / 12.0
     full = loop.Loop([cfg], [w], 7, n, torch.float32)

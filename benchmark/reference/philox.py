@@ -56,12 +56,14 @@ def _mulhilo(a: int, x: torch.Tensor):
     return u >> 16, ((u & 0xFFFF) << 16) | (t & 0xFFFF)
 
 
-def words(seed: int, block: torch.Tensor, month, lane: torch.Tensor):
+def words(seed: int, block: torch.Tensor, month, lane: torch.Tensor, counter: int = 0):
     """The four output words of one month's draw (or of a (T, 1) tensor of
-    months) for every path."""
+    months) for every path; ``counter`` is the counter's third word, 0 for
+    the month's own draw (the extensions draw beside it: 1 the crash
+    normal, 2 the lifetime uniform)."""
     month = torch.as_tensor(month, dtype=torch.int64, device=lane.device) & MASK
     c0 = month + torch.zeros_like(lane)
-    c1, c2, c3 = lane.expand_as(c0), torch.zeros_like(c0), torch.zeros_like(c0)
+    c1, c2, c3 = lane.expand_as(c0), torch.full_like(c0, counter), torch.zeros_like(c0)
     k0, k1 = int(seed) & MASK, block
     for r in range(ROUNDS):
         if r:
