@@ -2236,6 +2236,8 @@ def phase_mesh(report):
             batch, gseed, gmonths, GR, N_FULL, gst, mesh=mesh))
         first = ck.grid(gpacked, gst, GR, N_FULL)
         for a, b, c in zip(raw_out, single, first):
+            if a is None:  # the probe's decided steps: no grid launch counts them
+                continue
             same("12a", "grid_raw", a, b)
             if a.ndim == 2:
                 same("12a", "grid_raw (first n)", a[:, :N_FULL], c)

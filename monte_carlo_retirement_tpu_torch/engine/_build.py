@@ -110,6 +110,18 @@ def _unit(lib) -> Optional[Unit]:
     return Unit(lib)
 
 
+# The extensions of a Statics, in the order statics_tag names them.
+EXTENSIONS = ("bill1", "bill2", "glide", "guardrails", "jumps", "mortality",
+              "antithetic")
+
+
+def statics_tag(statics) -> str:
+    """The extensions ``statics`` turns on, as one short string ("" for
+    none): the ``statics`` attribute of the kernel spans and of
+    ``kernel.load``."""
+    return "+".join(name for name in EXTENSIONS if getattr(statics, name))
+
+
 def statics_unit(statics, source: str = "month_loop.cu", real: str = "float",
                  draws: str = "philox", tk: int = 0) -> str:
     """The generated translation unit of one Statics: each flag as a
@@ -296,13 +308,21 @@ def _bind(lib: ctypes.CDLL, unit: Optional[Unit]) -> None:
 def load(statics=None) -> ctypes.CDLL:
     """The month-loop library of ``statics`` (a Statics or a :class:`Unit`;
     the stream check's for None), built on first use and loaded once per
-    process."""
+    process. Its first use is a span ``kernel.load``: attributes
+    ``statics`` (:func:`statics_tag`; None for the stream check) and
+    ``built`` (whether nvcc ran, or the library was read from the build
+    directory)."""
+    from ..utils import profiling
+
     key = _unit(statics)
     with _LOCK:
         lib = _LIBS.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(key)))
-            _bind(lib, key)
+            tag = None if key is None else statics_tag(key.statics)
+            with profiling.span("kernel.load", statics=tag) as span:
+                span.set(built=not library_path(key).exists())
+                lib = ctypes.CDLL(str(build(key)))
+                _bind(lib, key)
             _LIBS[key] = lib
         return lib
 

@@ -50,7 +50,10 @@
 //     a month left it leaves the loop, draws included. A warp that is done,
 //     or has no row, still draws its share of each chunk the block runs,
 //     meets every barrier, and votes in the survivor ballot. The months
-//     each warp ran are counted (the `steps` buffer beside `counts`). On
+//     each warp ran are counted (the `steps` buffer beside `counts`); under
+//     longevity the probe also counts those it ran once every path of the
+//     warp was decided (ruined, or solvent past its owner's death, when it
+//     spends no more), work its success count does not need. On
 //     launches whose paths all live, a vote after every month cost 3-5%,
 //     a yearly one 1-2%, and one at chunk ends nothing, but that one runs
 //     a row ruined within two years for a whole chunk of 64 months
@@ -921,8 +924,12 @@ __device__ __forceinline__ void tile_growth(const Scenario<T>& sc, const T* t,
 // at the end of a retirement year or of a chunk (a retirement month always
 // runs before the first vote: it settles a path that the snapshot killed).
 // counts[row] gets the row's survivors, steps[row] the retirement months
-// its warps ran.
-template <bool GRID, class T, class Paths>
+// its warps ran. DECIDED (the probe under MCRT_MORTALITY) also counts, in
+// steps[n_rows + row], the retirement months its warps ran after every
+// path of the warp was decided: ruined, or solvent past its owner's death
+// (no spending is left to fail). The warps look where they vote, so a
+// warp counts the months after the first vote that finds it decided.
+template <bool GRID, bool DECIDED = false, class T, class Paths>
 __device__ __forceinline__ void tile_body(
     const T* __restrict__ fp, const int* __restrict__ ip, int n_rows,
     int n, int rows_per_block, int months_per_chunk, const Paths& paths,
@@ -960,6 +967,9 @@ __device__ __forceinline__ void tile_body(
   // The last month this warp runs (warp-uniform): its row's t_end, or the
   // month of the vote that found none of its paths alive.
   int end = t_end;
+  // The month of the first vote that found every path of the warp decided
+  // (0: none yet); warp-uniform.
+  int decided_at = 0;
 
   for (int m0 = 1; m0 <= t_max; m0 += M) {
     const int mc = min(M, t_max - m0 + 1);
@@ -1003,6 +1013,13 @@ __device__ __forceinline__ void tile_body(
         tile_growth<GRID>(sc, tile + (m - m0) * FIELDS * P + j, g1, gi, g2);
         retire_month<false>(sc, c, m, w, t_end, g1, gi, g2, Records<T>{});
       }
+      if constexpr (kMortality && DECIDED) {
+        // Undecided: alive, and its owner lives in month m_vote + 1.
+        if (decided_at == 0 &&
+            !__any_sync(0xffffffffu, p < n && c.alive_f > T(0.5) &&
+                                         static_cast<T>(m_vote - w) < c.d_mort))
+          decided_at = m_vote;
+      }
       if (!__any_sync(0xffffffffu, p < n && c.alive_f > T(0.5))) {
         end = m_vote;
         break;
@@ -1027,6 +1044,8 @@ __device__ __forceinline__ void tile_body(
   if (j == 0 && has_row) {
     atomicAdd(counts + row, __popc(ballot));
     atomicAdd(steps + row, max(end - w, 0));  // the retirement months run
+    if constexpr (kMortality && DECIDED)
+      atomicAdd(steps + n_rows + row, decided_at > 0 ? end - decided_at : 0);
   }
 }
 
@@ -1199,8 +1218,8 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
                  float* __restrict__ success, float* __restrict__ final_bal,
                  int* __restrict__ counts, int* __restrict__ steps) {
   const PhiloxPaths paths{static_cast<uint32_t>(ip[I_SEED]), ip[I_BLOCK_OFF]};
-  tile_body<false>(fp, ip, n_rows, n, rows_per_block, months_per_chunk, paths,
-                   0, success, final_bal, counts, steps);
+  tile_body<false, true>(fp, ip, n_rows, n, rows_per_block, months_per_chunk,
+                         paths, 0, success, final_bal, counts, steps);
 }
 
 // One parameter row per scenario (fp: K rows of F.NUM + 5*S floats).
@@ -1331,7 +1350,9 @@ int mcrt_jvp(const void* fp, const void* fp_dot, const void* ip,
 }
 #elif !MCRT_THREEFRY
 // counts and steps: (K,) int32, zeroed by the caller; each row gets its
-// survivors and the retirement months its warps ran.
+// survivors and the retirement months its warps ran. Under MCRT_MORTALITY
+// the probe's steps are (2, K): row 1 gets the months its warps ran once
+// decided (tile_body).
 int mcrt_probe(const void* fp, const void* ip, int n_cand, int n_paths,
                int n_streams, int rows_per_block, int months_per_chunk,
                int fields, int smem_bytes, void* success, void* final_bal,

@@ -35,7 +35,9 @@ A warp of them stops its retirement months once it finds its 32 paths
 all ruined (it looks at the end of each retirement year and of each
 tile), and a block its month loop once its warps are all done; each
 launch counts the retirement months its warps ran (``ProbeOut.steps``,
-``BODY_STEPS``), and so does each plain version.
+``BODY_STEPS``), and so does each plain version; under longevity the
+probe also counts those run once every path of the warp was decided
+(``ProbeOut.decided``).
 
 Beside each wrapper is its plain PyTorch version (:func:`probe_plain`,
 :func:`grid_plain`, :func:`simulate_plain`, :func:`simulate_full_plain`,
@@ -71,6 +73,7 @@ from ..models.retirement import SimParams, prune_streams
 from ..ops import threefry
 from ..ops.shocks import JUMP_FOLD_OFFSET, MORT_FOLD_OFFSET
 from ..utils import profiling
+from ._build import statics_tag
 
 # Kernel launches / plain-version calls since the last reset, changed only
 # under _COUNT_LOCK (a dict increment is a read-modify-write). "scan" counts
@@ -86,8 +89,12 @@ PLAIN_CALLS: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0,
 # per kernel, since the last reset. A warp stops once its paths are all
 # ruined, so run / in range is the share of the body's work left. Added
 # where the program copies a launch's counts to the host (record_steps):
-# the steps travel in that copy.
-BODY_STEPS: Dict[str, list] = {"probe": [0, 0], "grid": [0, 0], "scan": [0, 0]}
+# the steps travel in that copy. "decided": of the probe launches under
+# longevity, the months their warps ran once every path was decided
+# (ruined, or solvent past its owner's death: ``ProbeOut.decided``),
+# against all they had in range.
+BODY_STEPS: Dict[str, list] = {"probe": [0, 0], "grid": [0, 0], "scan": [0, 0],
+                               "decided": [0, 0]}
 _COUNT_LOCK = threading.Lock()
 
 # Rows of a probe or grid launch: groups of rows ride gridDim.y.
@@ -121,13 +128,21 @@ def body_steps_all(rows: int, n_paths: int, retirement_years: int) -> int:
     return int(rows) * -(-int(n_paths) // WARP) * MONTHS_PER_YEAR * int(retirement_years)
 
 
-def record_steps(kind: str, run: int, in_range: int) -> Dict[str, int]:
-    """Add launches' body steps to ``BODY_STEPS[kind]``; returns them as
-    the attributes of the span of their copy to the host."""
+def record_steps(kind: str, run: int, in_range: int,
+                 decided: Optional[int] = None) -> Dict[str, int]:
+    """Add launches' body steps to ``BODY_STEPS[kind]`` (and ``decided``,
+    where the launches counted it, to ``BODY_STEPS["decided"]``); returns
+    them as the attributes of the span of their copy to the host."""
+    attrs = {"steps_run": int(run), "steps_all": int(in_range)}
+    if decided is not None:
+        attrs["steps_decided"] = int(decided)
     with _COUNT_LOCK:
-        BODY_STEPS[kind][0] += int(run)
-        BODY_STEPS[kind][1] += int(in_range)
-    return {"steps_run": int(run), "steps_all": int(in_range)}
+        BODY_STEPS[kind][0] += attrs["steps_run"]
+        BODY_STEPS[kind][1] += attrs["steps_all"]
+        if decided is not None:
+            BODY_STEPS["decided"][0] += attrs["steps_decided"]
+            BODY_STEPS["decided"][1] += attrs["steps_all"]
+    return attrs
 
 
 class F:
@@ -187,6 +202,10 @@ def statics_from_config(config) -> Statics:
         jumps=getattr(config, "market_crashes", None) is not None,
         mortality=getattr(config, "longevity", None) is not None,
     )
+
+
+def _statics_attrs(packed, statics, *args, **kwargs) -> Dict[str, str]:
+    return {"statics": statics_tag(statics)}
 
 
 @dataclasses.dataclass
@@ -434,6 +453,9 @@ class ProbeOut(NamedTuple):
     # (K,) int64 — retirement months run per row, in warp-months (row 1 of
     # the kernel's buffer whose row 0 is ``counts``); None where not counted
     steps: Optional[torch.Tensor] = None
+    # (K,) int64 — of those, the months run once every path of the warp was
+    # decided (row 2; the probe under longevity only, else None)
+    decided: Optional[torch.Tensor] = None
 
 
 class SimulateOut(NamedTuple):
@@ -539,7 +561,9 @@ def _launch_rows(entry: str, packed: Packed, statics: Statics,
     dev = packed.device
     success = torch.empty((K, n), dtype=torch.float32, device=dev)
     final = torch.empty((K, n), dtype=torch.float32, device=dev)
-    tally = torch.zeros((2, K), dtype=torch.int32, device=dev)
+    # The probe under longevity writes its decided months after the steps.
+    decided = entry == "mcrt_probe" and statics.mortality
+    tally = torch.zeros((3 if decided else 2, K), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             packed.fp.data_ptr(), packed.ip.data_ptr(), K, n,
@@ -554,29 +578,34 @@ def _launch_rows(entry: str, packed: Packed, statics: Statics,
 
 def _rows_out(tally: torch.Tensor, success: torch.Tensor,
               final: torch.Tensor) -> ProbeOut:
-    """A tiled launch's outputs: survivors and body steps, rows of its
-    (2, K) int32 tally, as int64."""
+    """A tiled launch's outputs: survivors, body steps and (a third row)
+    decided steps, rows of its (2 or 3, K) int32 tally, as int64."""
     tally = tally.to(torch.int64)
-    return ProbeOut(tally[0], success, final, tally[1])
+    return ProbeOut(tally[0], success, final, tally[1],
+                    tally[2] if len(tally) > 2 else None)
 
 
 def _plain_out(out: Dict[str, torch.Tensor]) -> ProbeOut:
     counts = (out["success"] > 0.5).sum(dim=1)
-    return ProbeOut(counts, out["success"], out["final_balance"], out["steps"])
+    return ProbeOut(counts, out["success"], out["final_balance"], out["steps"],
+                    out.get("decided"))
 
 
 def _plain_rows(packed: Packed, statics: Statics, retirement_years: int,
-                n_paths: int, shocks: Optional[torch.Tensor]) -> ProbeOut:
+                n_paths: int, shocks: Optional[torch.Tensor],
+                decided: bool = False) -> ProbeOut:
+    """The plain loop's rows; ``decided``: count the decided months too,
+    as the probe kernel does under longevity."""
     from . import kernel
 
     return _plain_out(kernel.simulate(packed, statics, retirement_years,
-                                      n_paths, shocks=shocks))
+                                      n_paths, shocks=shocks, decided=decided))
 
 
 # ---------------------------------------------------------------------------
 # probe: candidate-parallel success for the search
 # ---------------------------------------------------------------------------
-@profiling.traced("kernel.probe")
+@profiling.traced("kernel.probe", _statics_attrs)
 def probe(packed: Packed, statics: Statics, retirement_years: int,
           n_paths: int) -> ProbeOut:
     """Per-candidate survivors over exactly ``n_paths`` paths (kernel on a
@@ -596,13 +625,14 @@ def probe_plain(packed: Packed, statics: Statics, retirement_years: int,
     """Plain PyTorch version of :func:`probe` (optionally on injected
     shocks, (T, P, n) in the plane layout of ``kernel.shock_planes``)."""
     _count(PLAIN_CALLS, "probe")
-    return _plain_rows(packed, statics, retirement_years, n_paths, shocks)
+    return _plain_rows(packed, statics, retirement_years, n_paths, shocks,
+                       decided=True)
 
 
 # ---------------------------------------------------------------------------
 # scenario grid: one parameter row per scenario, shocks shared by the grid
 # ---------------------------------------------------------------------------
-@profiling.traced("kernel.grid")
+@profiling.traced("kernel.grid", _statics_attrs)
 def grid(packed: Packed, statics: Statics, retirement_years: int,
          n_paths: int) -> ProbeOut:
     """Per-scenario survivors, alive flags and final balances (K, n) over
@@ -667,7 +697,7 @@ VECTOR_FIELDS = (
 )
 
 
-@profiling.traced("kernel.full")
+@profiling.traced("kernel.full", _statics_attrs)
 def simulate_full(packed: Packed, statics: Statics, retirement_years: int,
                   n_paths: int, traj_len: int) -> Dict[str, torch.Tensor]:
     """Per-path vectors (n,) and series ``trajectory``/``price_levels``

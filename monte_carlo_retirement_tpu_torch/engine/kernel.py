@@ -114,6 +114,7 @@ def simulate(
     draws: Optional["ScanDraws"] = None,
     acc_months: Optional[int] = None,
     carry: bool = False,
+    decided: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Run the month loop for every candidate row of ``packed``.
 
@@ -124,9 +125,12 @@ def simulate(
     warp-months: a warp of 32 consecutive paths runs its retirement months
     until it finds none of its paths alive where it looks, at the end of
     each retirement year and of each chunk of months the launch draws at
-    once (``tile_plan``). With ``carry`` also the loop's last state, a
-    dict of (K, n) tensors by field (its carry). With ``traj_len > 0``
-    (one candidate only) it returns the tracked per-path vectors (n,) and
+    once (``tile_plan``). With ``decided``, under longevity, also
+    ``decided`` (K,): of those months, the ones a warp runs after the
+    first place it looks finds every path decided, ruined or past its
+    owner's death (the probe kernel's count). With ``carry`` also the
+    loop's last state, a dict of (K, n) tensors by field (its carry).
+    With ``traj_len > 0`` (one candidate only) it returns the tracked per-path vectors (n,) and
     the series ``trajectory``/``price_levels`` (n, traj_len) and
     ``withdrawal_rates`` (n, R) instead.
 
@@ -139,6 +143,7 @@ def simulate(
     R = int(retirement_years)
     n = int(n_paths)
     track = traj_len > 0
+    decided = decided and statics.mortality and not track
     dtype = packed.fp.dtype
     dev = packed.fp.device
     ip = packed.ip.tolist()
@@ -486,6 +491,11 @@ def simulate(
         chunk = tile_plan(K, n, statics, "probe").months_per_chunk
         stopped = torch.zeros((K, warps), dtype=torch.bool, device=dev)
         steps = torch.zeros(K, dtype=torch.int64, device=dev)
+        by_warp = lambda flags: torch.nn.functional.pad(
+            flags, (0, warps * WARP - n)).reshape(K, warps, WARP).any(dim=2)
+        if decided:
+            settled = torch.zeros((K, warps), dtype=torch.bool, device=dev)
+            steps_decided = torch.zeros(K, dtype=torch.int64, device=dev)
         for m in range(1, max(t_end_list) + 1):
             g = draw(m)
             acc_st = accum_month(m, st, g) if m <= acc_max else None
@@ -496,12 +506,17 @@ def simulate(
                 v = m - 1
                 looks = (v > w_t) & (((v - w_t) % Y == 0) | (v % chunk == 0))
                 if bool(looks.any()):
-                    live = torch.nn.functional.pad(st["alive"] > 0.5,
-                                                   (0, warps * WARP - n))
-                    live = live.reshape(K, warps, WARP).any(dim=2)
+                    live = by_warp(st["alive"] > 0.5)
                     stopped = stopped | (looks & ~live)
+                    if decided:
+                        # Undecided: alive, and its owner lives in month m.
+                        undecided = by_warp((st["alive"] > 0.5)
+                                            & ((v - w_t).to(dtype) < d_mort))
+                        settled = settled | (looks & ~undecided)
                 runs = ~stopped & (m > w_t) & (m <= t_end_t)
                 steps = steps + runs.sum(dim=1)
+                if decided:
+                    steps_decided = steps_decided + (runs & settled).sum(dim=1)
                 ret_st = ret_month(m, st, g)
             if ret_st is None and m <= min(acc_end):
                 st = acc_st
@@ -530,6 +545,8 @@ def simulate(
     }
     if not track:
         out["steps"] = steps
+        if decided:
+            out["decided"] = steps_decided
         if carry:
             out["carry"] = st
     if track:

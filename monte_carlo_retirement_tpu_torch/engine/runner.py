@@ -451,8 +451,9 @@ class Engine:
 
     def _probe_counts(self, padded: List[int], stream: str, n_total: int):
         """Survivors per candidate over exactly ``n_total`` paths, in
-        launches of at most ``max_probe_paths()``; the launches' body steps
-        come back in the same copy (``cuda_kernel.BODY_STEPS``)."""
+        launches of at most ``max_probe_paths()``; the launches' body steps,
+        and under longevity their decided steps, come back in the same copy
+        (``cuda_kernel.BODY_STEPS``)."""
         budget = max(BLOCK_PATHS, (max_probe_paths() // BLOCK_PATHS) * BLOCK_PATHS)
         tally, offset, steps_all = None, 0, 0
         for start in range(0, n_total, budget):
@@ -462,15 +463,18 @@ class Engine:
                 self.statics, self.retirement_years, cn,
             )
             # A wrapper of the kernel may hand back its counts alone.
-            part = (out.counts[None] if out.steps is None
-                    else torch.stack((out.counts, out.steps)))
+            rows = [out.counts]
+            if out.steps is not None:
+                rows += [out.steps] + ([] if out.decided is None else [out.decided])
+            part = torch.stack(rows)
             tally = part if tally is None else tally + part
             steps_all += body_steps_all(len(padded), cn, self.retirement_years)
             offset += -(-cn // BLOCK_PATHS)
         with profiling.span("card.sync", what="probe") as sync:
             tally = tally.cpu().numpy()
             if len(tally) > 1:
-                sync.set(**record_steps("probe", tally[1].sum(), steps_all))
+                decided = tally[2].sum() if len(tally) > 2 else None
+                sync.set(**record_steps("probe", tally[1].sum(), steps_all, decided))
         return tally[0], n_total
 
     def _probe_counts_mesh(self, padded: List[int], stream: str, n_total: int):

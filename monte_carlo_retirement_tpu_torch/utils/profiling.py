@@ -32,7 +32,7 @@ import logging
 import os
 import threading
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 
@@ -227,15 +227,16 @@ def request_span(name: str, **attrs):
     return _Span(name, attrs, new_request=True)
 
 
-def traced(name: str):
-    """Decorator: every call of the function is a span ``name``."""
+def traced(name: str, attrs: Optional[Callable[..., dict]] = None):
+    """Decorator: every call of the function is a span ``name``; ``attrs``,
+    called with the call's arguments, gives the span's attributes."""
 
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
             if not _RECORDING:
                 return fn(*args, **kwargs)
-            with _Span(name, {}):
+            with _Span(name, attrs(*args, **kwargs) if attrs else {}):
                 return fn(*args, **kwargs)
 
         return call

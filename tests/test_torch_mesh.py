@@ -172,6 +172,9 @@ def test_sharded_launch_equals_single_device(setup, launch, n_dev):
                                        mesh=mesh)
         first = ck.grid(ck.pack_grid(batch, seed, months, R, dtype=F64), statics, R, N)
         for a, b, c in zip(got, single, first):
+            if a is None:  # the probe's decided steps: no grid launch counts them
+                assert b is None and c is None
+                continue
             np.testing.assert_array_equal(a.numpy(), b.numpy())
             if a.ndim == 2:
                 np.testing.assert_array_equal(a[:, :N].numpy(), c.numpy())

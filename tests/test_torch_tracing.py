@@ -304,3 +304,60 @@ def test_a_refused_request_records_its_status(recording):
     root, mine, names = _one_request(spans, "http.simulate")
     assert root["attrs"] == {"status": 422}
     assert set(names) == {"http.simulate", "http.parse"}
+
+
+def test_kernel_spans_name_the_extensions_of_their_statics(recording):
+    from monte_carlo_retirement_tpu_torch.config import Config
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+    from monte_carlo_retirement_tpu_torch.engine.runner import Engine
+
+    longevity = {"mode_age": 88.0, "dispersion_years": 10.0, "max_age": 110.0}
+    for over, tag in (({}, ""), ({"longevity": longevity, "antithetic": True},
+                                 "mortality+antithetic")):
+        eng = Engine(Config(**dict(PLAN, **over)), device="cpu")
+        R, n = eng.retirement_years, 64
+        ck.probe(eng._pack([0, 12], "search"), eng.statics, R, n)
+        one = eng._pack([12], "final")
+        ck.simulate_full(one, eng.statics, R, n, 3)
+        ck.grid(ck.Packed(fp=one.fp[None], ip=one.ip, n_streams=one.n_streams),
+                eng.statics, R, n)
+        kernels = [s for s in profiling.drain() if s["name"].startswith("kernel.")]
+        assert [s["name"] for s in kernels] == ["kernel.probe", "kernel.full", "kernel.grid"]
+        assert all(s["attrs"] == {"statics": tag} for s in kernels), kernels
+
+
+def test_kernel_load_opens_once_per_library_and_says_whether_nvcc_ran(
+        recording, monkeypatch):
+    from pathlib import Path
+
+    from monte_carlo_retirement_tpu_torch.engine import _build
+    from monte_carlo_retirement_tpu_torch.engine import cuda_kernel as ck
+
+    built = []
+    base = ck.Statics(True, True, False, False, (True,), (False,))
+    on = base._replace(bill1=True, jumps=True, mortality=True)
+    on_disk = {_build.Unit(on)}  # the all-on library is in the build directory
+
+    class LibraryPath:
+        def __init__(self, unit):
+            self.unit = unit
+
+        def exists(self):
+            return self.unit in on_disk
+
+    def build(unit):
+        built.append(unit)
+        on_disk.add(unit)
+        return Path("month_loop.so")
+
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "library_path", LibraryPath)
+    monkeypatch.setattr(_build, "build", build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: object())
+    monkeypatch.setattr(_build, "_bind", lambda lib, unit: None)
+    for statics in (base, on, base, _build.Unit(on), on):
+        _build.load(statics)
+    loads = [s for s in profiling.drain() if s["name"] == "kernel.load"]
+    assert [s["attrs"] for s in loads] == [
+        {"statics": "", "built": True}, {"statics": "bill1+jumps+mortality", "built": False}]
+    assert built == [_build.Unit(base), _build.Unit(on)]
