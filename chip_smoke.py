@@ -47,7 +47,9 @@ result):
      simulate (the grid kernel's one-row launch) and simulate_plain there;
      the probe and the full kernel again under the all-on Statics beside
      their plain versions (one cold call each), and the probe with each
-     extension alone (min of 2); one 16-row chunk of the 16 x 16
+     extension alone (min of 2); the probe at the search's later ladder
+     (W = 204-384), whose rows share their working years; one 16-row chunk
+     of the 16 x 16
      scenario grid (config.json, expenses 4,000-14,000 x equity mean
      0.06-0.14, W=231, R=50, 1M paths): the grid kernel alone, its plain
      version, the chunk's statistics; and the wall time of the whole
@@ -620,7 +622,7 @@ def _ptxas_summary(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = next((k for k in ("probe_kernel", "grid_kernel",
+            name = next((k for k in ("probe_kernel", "accum_kernel", "grid_kernel",
                                      "scan_full_kernel", "full_kernel",
                                      "normals_kernel", "threefry_kernel",
                                      "scan_rows_kernel", "jvp_kernel")
@@ -1114,7 +1116,7 @@ def phase_timings(report):
     months16 = list(range(16))
     bounds = {
         "probe": _bound(report, "probe", ck.tile_work(
-            ck.tile_plan(16, n, eng.statics, "probe"), months16,
+            ck.probe_plan(16, n, eng.statics), months16,
             [w + T for w in months16]), 16 * n * 8),
         "full": _bound(report, "full", bound.full_work(n, 0, T),
                        4 * n * (7 + 2 * L + R)),
@@ -1134,6 +1136,20 @@ def phase_timings(report):
     print(f"[6]   success at W=0: {succ:.3f}%")
     _print_bounds(times, bounds, ("probe", "full", "simulate"))
     _print_rows("slice probe", probe_out)
+    # The search's later ladder, W = 204-384: its rows share 204 working
+    # years, which accum_kernel runs once per path, then each row retires.
+    ladder = list(range(204, 385, 12))
+    ladder_packed = eng._pack(ladder, "search")
+    ladder_plan = ck.probe_plan(16, n, eng.statics)
+    times["probe_ladder"] = _time_ms(
+        lambda: ck.probe(ladder_packed, eng.statics, R, n))
+    bounds["probe_ladder"] = _bound(report, "probe", ck.tile_work(
+        ladder_plan, ladder, [w + T for w in ladder]), 16 * n * 8)
+    acc = ck.accum_counts(ladder_plan, ladder)
+    print(f"[6]   probe at W=204-384 (accumulation path-months run / per row: "
+          f"{acc['accum_run']:,} / {acc['accum_rows']:,}): kernel "
+          f"{times['probe_ladder']:.3f} ms")
+    _print_bounds(times, bounds, ("probe_ladder",))
     # The tiled kernels stop a warp whose paths are all ruined. The slice's
     # rows live through their 600 months, so it times the full work of its
     # bound: its skip share must read 0. config.json's own household at the
@@ -1173,7 +1189,7 @@ def phase_timings(report):
     probe_on_out = ck.probe(probe_on, st_on, R, n)
     succ_on = probe_on_out.counts[0].item() / n * 100
     bounds["probe_all_on"] = _bound(report, "probe", ck.tile_work(
-        ck.tile_plan(16, n, st_on, "probe"), months16,
+        ck.probe_plan(16, n, st_on), months16,
         [w + T for w in months16]), 16 * n * 8, "all-on")
     bounds["full_all_on"] = _bound(report, "full", bound.full_work(n, 0, T),
                                    4 * n * (7 + 2 * L + R), "all-on")

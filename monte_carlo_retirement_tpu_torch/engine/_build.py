@@ -10,7 +10,8 @@ scalar type and draw source (a :class:`Unit`), as the JAX package builds
 one executable per Statics: a small generated unit defines every flag of
 the Statics as a constant and includes the source, so each library holds
 one instance of each kernel, with every disabled feature compiled out. The
-Philox source in float32 holds the probe, grid and full kernels; the
+Philox source in float32 holds the probe, grid and full kernels (and,
+without a glide path, the probe's accumulation pass); the
 threefry source, in float32 or float64, the scan's two kernels; a JVP
 unit (``tk`` tangents, either type, either draw source) the JVP kernel of
 ``sensitivity_ad``. A new library costs one nvcc run of a few seconds on
@@ -293,7 +294,8 @@ def _bind(lib: ctypes.CDLL, unit: Optional[Unit]) -> None:
         }
     else:
         entries = {
-            "mcrt_probe": [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp, vp],
+            "mcrt_probe": [vp, vp, i, i, i, i, i, i, i, i, i, vp, vp, vp, vp,
+                           vp, vp],
             "mcrt_grid": [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp, vp],
             "mcrt_full": [vp, vp, i, i, i, i, vp, vp, vp, vp, vp],
         }

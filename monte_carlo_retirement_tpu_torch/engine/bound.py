@@ -1,8 +1,8 @@
 """The least time the card could take for a month-loop launch.
 
 A launch's work is counted in parts (``cuda_kernel.tile_work`` for the
-probe, grid and scan-rows kernels, :func:`full_work` for the full,
-scan-full and JVP kernels): draws
+probe, grid and scan-rows kernels, the probe's accumulation pass included,
+:func:`full_work` for the full, scan-full and JVP kernels): draws
 (path-months), parameter applications of the grid's rows, accumulation
 months and retirement months (row-path-months).
 Each part is priced from the SASS of its one-step kernel in

@@ -5,7 +5,9 @@
 // monte_carlo_retirement_tpu/engine/pallas_kernel.py:
 //   * probe_kernel  <- pallas_probe (pallas_kernel.py:1325, call at :1387):
 //     candidate working-month counts x paths -> per-path alive flag and
-//     final balance, plus the exact success count per candidate;
+//     final balance, plus the exact success count per candidate; without a
+//     glide path its rows start from the carry that accum_kernel (no TPU
+//     counterpart: the Pallas probe accumulates per candidate) hands them;
 //   * grid_kernel   <- _scenario_grid_call (pallas_kernel.py:1567, call at
 //     :1640): the probe body with one parameter row per scenario (the
 //     scenario grid); its one-row launch replaces pallas_simulate
@@ -66,6 +68,20 @@
 //     infl, alive; the gain accumulators, fixed-nominal slots and spending
 //     multiplier where the Statics need them) in registers for all months --
 //     what the TPU kernel bought with VMEM residency.
+//   * The probe's rows share their working years. Its candidates differ
+//     only in W, and an accumulation month reads the carry, the month, the
+//     growth factors and the shared parameter block, not W (the glide path
+//     excepted: its target moves with each row's own W). So without a glide
+//     path a row's carry at its month W is the carry of any row with a
+//     larger W at that month, bit for bit. accum_kernel runs those months
+//     once per path, one thread per path drawing in-thread (a sequential
+//     chain of 32 paths cannot fill a 16-warp block), to the launch's
+//     largest W, and stores the carry at each row's W; each probe warp
+//     loads its row's carry and starts at its first retirement month, and
+//     the block's month loop starts at the chunk that holds its rows'
+//     smallest W + 1, drawing nothing below it. Chunks keep their
+//     boundaries, so the warps vote where they did and count the same
+//     months. A library with a glide path keeps the per-row accumulation.
 //   * full_kernel has one row, so nothing to share: one thread per path draws
 //     in-thread through the same helpers and runs the same month steps
 //     (start_path, accum_month, snapshot, retire_month), plus the records.
@@ -913,6 +929,53 @@ __device__ __forceinline__ void tile_growth(const Scenario<T>& sc, const T* t,
   }
 }
 
+// The carry a probe row takes over at its month W from accum_kernel, in a
+// (rows, kCarryFields, n) buffer: the balances, their bases and the price
+// level; with annual bills also the period's market gains and the flag of
+// a bill that failed before retirement (the snapshot reads it).
+constexpr int kCarryFields = kBills ? 8 : 5;
+
+template <class T>
+__device__ __forceinline__ void store_row_carry(const Carry<T>& c, T* out,
+                                                size_t n) {
+  out[0] = c.b1;
+  out[n] = c.c1;
+  out[2 * n] = c.b2;
+  out[3 * n] = c.c2;
+  out[4 * n] = c.infl;
+  if constexpr (kBills) {
+    out[5 * n] = c.g1a;
+    out[6 * n] = c.g2a;
+    out[7 * n] = c.preret ? T(1) : T(0);
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void load_row_carry(Carry<T>& c, const T* in,
+                                               size_t n) {
+  c.b1 = in[0];
+  c.c1 = in[n];
+  c.b2 = in[2 * n];
+  c.c2 = in[3 * n];
+  c.infl = in[4 * n];
+  if constexpr (kBills) {
+    c.g1a = in[5 * n];
+    c.g2a = in[6 * n];
+    c.preret = in[7 * n] > T(0.5);
+  }
+}
+
+// The smallest W of the block's rows (each warp's lane 0 votes for its
+// row); every thread of the block calls it.
+__device__ __forceinline__ int block_min_w(int w, bool votes) {
+  __shared__ int lo;
+  if (threadIdx.x == 0) lo = 0x7fffffff;
+  __syncthreads();
+  if (votes) atomicMin(&lo, w);
+  __syncthreads();
+  return lo;
+}
+
 // Block (bx, by) holds rows by*C .. by*C+C-1 and paths bx*32 .. bx*32+31;
 // warp v of the block serves row by*C + v (cuda_kernel.TilePlan.cell mirrors
 // this). Dynamic shared memory: the draw tile [M][FIELDS][32] of T, then
@@ -929,12 +992,18 @@ __device__ __forceinline__ void tile_growth(const Scenario<T>& sc, const T* t,
 // path of the warp was decided: ruined, or solvent past its owner's death
 // (no spending is left to fail). The warps look where they vote, so a
 // warp counts the months after the first vote that finds it decided.
-template <bool GRID, bool DECIDED = false, class T, class Paths>
+// SHARED_ACCUM (the probe without a glide path): a row with W > 0 runs no
+// accumulation month; it loads its carry at W from ``carry`` (n_rows,
+// kCarryFields, n), written by accum_kernel, and the block's loop starts at
+// the chunk that holds its smallest W + 1, drawing no month below it.
+template <bool GRID, bool DECIDED = false, bool SHARED_ACCUM = false, class T,
+          class Paths>
 __device__ __forceinline__ void tile_body(
     const T* __restrict__ fp, const int* __restrict__ ip, int n_rows,
     int n, int rows_per_block, int months_per_chunk, const Paths& paths,
     int acc_cap, T* __restrict__ success, T* __restrict__ final_bal,
-    int* __restrict__ counts, int* __restrict__ steps) {
+    int* __restrict__ counts, int* __restrict__ steps,
+    const T* __restrict__ carry = nullptr) {
   constexpr int FIELDS = GRID ? kGridFields : kProbeFields;
   constexpr int P = kWarp;  // paths per block
   extern __shared__ __align__(8) unsigned char smem_raw[];
@@ -964,6 +1033,16 @@ __device__ __forceinline__ void tile_body(
 
   const Scenario<T> sc(GRID ? fp + static_cast<size_t>(my_row) * kRow : fp);
   Carry<T> c = start_path(sc, w, key);
+  // The first month the block draws: month 1, or (SHARED_ACCUM) the first
+  // of the chunk that holds its rows' smallest W + 1.
+  int m_first = 1, w_lo = 0;
+  if constexpr (SHARED_ACCUM) {
+    w_lo = block_min_w(w, j == 0 && has_row);
+    m_first = 1 + (w_lo / M) * M;
+    if (has_row && w > 0 && p < n)
+      load_row_carry(c, carry + static_cast<size_t>(row) * kCarryFields * n + p,
+                     static_cast<size_t>(n));
+  }
   // The last month this warp runs (warp-uniform): its row's t_end, or the
   // month of the vote that found none of its paths alive.
   int end = t_end;
@@ -971,11 +1050,13 @@ __device__ __forceinline__ void tile_body(
   // (0: none yet); warp-uniform.
   int decided_at = 0;
 
-  for (int m0 = 1; m0 <= t_max; m0 += M) {
+  for (int m0 = m_first; m0 <= t_max; m0 += M) {
     const int mc = min(M, t_max - m0 + 1);
     // Draw phase: every warp of the block, each path-month once (warp v
-    // draws months v, v + C, ... of the chunk for its 32 paths).
-    for (int mm = row_in_block; mm < mc; mm += rows_per_block) {
+    // draws months v, v + C, ... of the chunk for its 32 paths), from the
+    // block's first retirement month on where accum_kernel drew the rest.
+    const int mm0 = SHARED_ACCUM ? max(0, w_lo + 1 - m0) : 0;
+    for (int mm = mm0 + row_in_block; mm < mc; mm += rows_per_block) {
       const Shock<T> s = month_shock(m0 + mm, key);
       T* t = tile + mm * FIELDS * P + j;
       if constexpr (GRID) {
@@ -1000,9 +1081,11 @@ __device__ __forceinline__ void tile_body(
     // months, a year or the rest of the chunk at a time.
     const int m_last = min(m0 + mc - 1, end);
     T g1, gi, g2;
-    for (int m = m0; m <= min(m_last, w_acc); ++m) {
-      tile_growth<GRID>(sc, tile + (m - m0) * FIELDS * P + j, g1, gi, g2);
-      accum_month(sc, c, m, g1, gi, g2);
+    if constexpr (!SHARED_ACCUM) {
+      for (int m = m0; m <= min(m_last, w_acc); ++m) {
+        tile_growth<GRID>(sc, tile + (m - m0) * FIELDS * P + j, g1, gi, g2);
+        accum_month(sc, c, m, g1, gi, g2);
+      }
     }
     if (m0 <= w + 1 && w + 1 <= m_last) snapshot(c);
     for (int m = max(m0, w + 1); m <= m_last;) {
@@ -1211,15 +1294,69 @@ __global__ void __launch_bounds__(kJvpThreads)
 // ---------------------------------------------------------------------------
 // The Philox kernels (float32)
 // ---------------------------------------------------------------------------
-// Candidates share one parameter block (fp: F.NUM + 5*S floats).
+#if !MCRT_GLIDE
+// A value the compiler may not look through: the tiled loop reads each
+// growth factor back from shared memory, so no operation of growth()
+// contracts into an accumulation month's there, and none does here.
+__device__ __forceinline__ float opaque(float x) {
+  asm("" : "+f"(x));
+  return x;
+}
+
+// The smallest row W above month m (0x7fffffff: none); the same for every
+// thread.
+__device__ __forceinline__ int next_row_w(const int* __restrict__ ip,
+                                          int n_rows, int m) {
+  int next = 0x7fffffff;
+  for (int r = 0; r < n_rows; ++r) {
+    const int w = ip[r * NUM_IPARAMS + I_W];
+    if (w > m) next = min(next, w);
+  }
+  return next;
+}
+
+// The probe's shared working years: months 1..w_max (the launch's largest
+// W) of each path, one thread per path, drawn in-thread as full_kernel
+// draws; after month W of each row, that row's slice of carry (n_rows,
+// kCarryFields, n) gets the path's carry. A row with W = 0 gets none: its
+// carry is start_path's.
+__global__ void __launch_bounds__(kFullThreads)
+    accum_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
+                 int n_rows, int n, int w_max, float* __restrict__ carry) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const PhiloxPaths paths{static_cast<uint32_t>(ip[I_SEED]), ip[I_BLOCK_OFF]};
+  const PathKey key = paths.path(p);
+  const Scenario<float> sc(fp);
+  Carry<float> c = start_path(sc, 0, key);
+  int next = next_row_w(ip, n_rows, 0);
+  for (int m = 1; m <= w_max; ++m) {
+    float g1, gi, g2;
+    growth(sc, month_shock(m, key), g1, gi, g2);
+    accum_month(sc, c, m, opaque(g1), opaque(gi), opaque(g2));
+    if (m == next) {
+      for (int r = 0; r < n_rows; ++r)
+        if (ip[r * NUM_IPARAMS + I_W] == m)
+          store_row_carry(c, carry + static_cast<size_t>(r) * kCarryFields * n + p,
+                          static_cast<size_t>(n));
+      next = next_row_w(ip, n_rows, m);
+    }
+  }
+}
+#endif
+
+// Candidates share one parameter block (fp: F.NUM + 5*S floats). Without a
+// glide path each row starts from its carry at W (accum_kernel's).
 __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
     probe_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
                  int n_rows, int n, int rows_per_block, int months_per_chunk,
-                 float* __restrict__ success, float* __restrict__ final_bal,
-                 int* __restrict__ counts, int* __restrict__ steps) {
+                 const float* __restrict__ carry, float* __restrict__ success,
+                 float* __restrict__ final_bal, int* __restrict__ counts,
+                 int* __restrict__ steps) {
   const PhiloxPaths paths{static_cast<uint32_t>(ip[I_SEED]), ip[I_BLOCK_OFF]};
-  tile_body<false, true>(fp, ip, n_rows, n, rows_per_block, months_per_chunk,
-                         paths, 0, success, final_bal, counts, steps);
+  tile_body<false, true, !kGlide>(fp, ip, n_rows, n, rows_per_block,
+                                  months_per_chunk, paths, 0, success,
+                                  final_bal, counts, steps, carry);
 }
 
 // One parameter row per scenario (fp: K rows of F.NUM + 5*S floats).
@@ -1297,26 +1434,39 @@ int set_smem(Kernel kernel, int smem_bytes) {
 }
 
 #if !MCRT_THREEFRY && !MCRT_JVP_TK
+// A tiled launch of probe_kernel (with its carry, null under a glide path)
+// or grid_kernel.
 template <bool GRID>
 int launch_tiles(const void* fp, const void* ip, int n_rows, int n_paths,
                  int n_streams, int rows_per_block, int months_per_chunk,
-                 int fields, int smem_bytes, void* success, void* final_bal,
-                 void* counts, void* steps, void* stream) {
+                 int fields, int smem_bytes, const void* carry, void* success,
+                 void* final_bal, void* counts, void* steps, void* stream) {
   if (!tile_plan_ok(n_rows, n_paths, n_streams, rows_per_block,
                     months_per_chunk, fields,
                     GRID ? kGridFields : kProbeFields, smem_bytes, 4))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();  // clear any earlier, unrelated error
-  auto* kernel = GRID ? grid_kernel : probe_kernel;
-  if (const int err = set_smem(kernel, smem_bytes)) return err;
   const dim3 grid((n_paths + kWarp - 1) / kWarp,
                   (n_rows + rows_per_block - 1) / rows_per_block);
-  kernel<<<grid, rows_per_block * kWarp, smem_bytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(fp), static_cast<const int*>(ip), n_rows,
-      n_paths, rows_per_block, months_per_chunk,
-      static_cast<float*>(success), static_cast<float*>(final_bal),
-      static_cast<int*>(counts), static_cast<int*>(steps));
+  const dim3 block(rows_per_block * kWarp);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const float*>(fp);
+  const auto* i = static_cast<const int*>(ip);
+  auto* ok = static_cast<float*>(success);
+  auto* fin = static_cast<float*>(final_bal);
+  auto* cnt = static_cast<int*>(counts);
+  auto* st = static_cast<int*>(steps);
+  if constexpr (GRID) {
+    if (const int err = set_smem(grid_kernel, smem_bytes)) return err;
+    grid_kernel<<<grid, block, smem_bytes, s>>>(
+        f, i, n_rows, n_paths, rows_per_block, months_per_chunk, ok, fin, cnt,
+        st);
+  } else {
+    if (const int err = set_smem(probe_kernel, smem_bytes)) return err;
+    probe_kernel<<<grid, block, smem_bytes, s>>>(
+        f, i, n_rows, n_paths, rows_per_block, months_per_chunk,
+        static_cast<const float*>(carry), ok, fin, cnt, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 #endif
@@ -1352,15 +1502,35 @@ int mcrt_jvp(const void* fp, const void* fp_dot, const void* ip,
 // counts and steps: (K,) int32, zeroed by the caller; each row gets its
 // survivors and the retirement months its warps ran. Under MCRT_MORTALITY
 // the probe's steps are (2, K): row 1 gets the months its warps ran once
-// decided (tile_body).
+// decided (tile_body). Without a glide path (carry_fields == kCarryFields;
+// 0 under one) and with w_max, the rows' largest W, above 0, accum_kernel
+// first runs months 1..w_max into carry, (K, carry_fields, n_paths) floats
+// (null where w_max is 0), on the same stream.
 int mcrt_probe(const void* fp, const void* ip, int n_cand, int n_paths,
                int n_streams, int rows_per_block, int months_per_chunk,
-               int fields, int smem_bytes, void* success, void* final_bal,
-               void* counts, void* steps, void* stream) {
+               int fields, int smem_bytes, int carry_fields, int w_max,
+               void* carry, void* success, void* final_bal, void* counts,
+               void* steps, void* stream) {
+  const bool shared = !kGlide && w_max > 0;
+  if (carry_fields != (kGlide ? 0 : kCarryFields) || w_max < 0 ||
+      (carry != nullptr) != shared ||
+      !tile_plan_ok(n_cand, n_paths, n_streams, rows_per_block,
+                    months_per_chunk, fields, kProbeFields, smem_bytes, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+#if !MCRT_GLIDE
+  if (shared) {
+    cudaGetLastError();  // clear any earlier, unrelated error
+    accum_kernel<<<(n_paths + kFullThreads - 1) / kFullThreads, kFullThreads,
+                   0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(fp), static_cast<const int*>(ip), n_cand,
+        n_paths, w_max, static_cast<float*>(carry));
+    if (const int err = static_cast<int>(cudaGetLastError())) return err;
+  }
+#endif
   return launch_tiles<false>(fp, ip, n_cand, n_paths, n_streams,
                              rows_per_block, months_per_chunk, fields,
-                             smem_bytes, success, final_bal, counts, steps,
-                             stream);
+                             smem_bytes, carry, success, final_bal, counts,
+                             steps, stream);
 }
 
 int mcrt_grid(const void* fp, const void* ip, int n_rows, int n_paths,
@@ -1369,8 +1539,8 @@ int mcrt_grid(const void* fp, const void* ip, int n_rows, int n_paths,
               void* counts, void* steps, void* stream) {
   return launch_tiles<true>(fp, ip, n_rows, n_paths, n_streams,
                             rows_per_block, months_per_chunk, fields,
-                            smem_bytes, success, final_bal, counts, steps,
-                            stream);
+                            smem_bytes, nullptr, success, final_bal, counts,
+                            steps, stream);
 }
 
 int mcrt_full(const void* fp, const void* ip, int n_paths,

@@ -31,6 +31,11 @@ The probe and grid kernels draw each path-month once for all the rows of
 a block and share it through shared memory; :func:`tile_plan` decides
 their launch (rows and paths per block, months per draw tile) and
 :func:`tile_work` counts the work behind their bound (``engine/bound.py``).
+Without a glide path the probe's rows share their working years too: a
+first kernel runs each path's accumulation once, to the launch's largest
+W, and hands each row its carry at its own W (:func:`probe_plan`); each
+launch counts those path-months against what per-row accumulation would
+run (``BODY_STEPS["accum"]``).
 A warp of them stops its retirement months once it finds its 32 paths
 all ruined (it looks at the end of each retirement year and of each
 tile), and a block its month loop once its warps are all done; each
@@ -92,9 +97,12 @@ PLAIN_CALLS: Dict[str, int] = {"probe": 0, "grid": 0, "simulate": 0, "full": 0,
 # the steps travel in that copy. "decided": of the probe launches under
 # longevity, the months their warps ran once every path was decided
 # (ruined, or solvent past its owner's death: ``ProbeOut.decided``),
-# against all they had in range.
+# against all they had in range. "accum": of the probe launches, the
+# accumulation path-months run (once per path to a launch's largest W
+# without a glide path), against what per-row accumulation would run
+# (:func:`accum_counts`), added at the launch.
 BODY_STEPS: Dict[str, list] = {"probe": [0, 0], "grid": [0, 0], "scan": [0, 0],
-                               "decided": [0, 0]}
+                               "decided": [0, 0], "accum": [0, 0]}
 _COUNT_LOCK = threading.Lock()
 
 # Rows of a probe or grid launch: groups of rows ride gridDim.y.
@@ -218,12 +226,14 @@ class Packed:
     (:func:`pack_params`), or (K, F.NUM + 5*S), one row per scenario
     (:func:`pack_grid`). ``ip``: (K, 4) int32 rows [W, t_end, seed,
     block_offset], one per candidate or scenario. Both live on the device
-    they run on.
+    they run on. ``months``: the rows' W as the host packed them, where it
+    did (:func:`row_months`).
     """
 
     fp: torch.Tensor
     ip: torch.Tensor
     n_streams: int
+    months: Optional[Tuple[int, ...]] = None
 
     @property
     def device(self) -> torch.device:
@@ -312,10 +322,12 @@ def pack_params(
     device = params.initial_balance.device if device is None else device
     require_device(device)
     fp = _fparams(params, dtype).to(device)
+    months = torch.as_tensor(working_months, dtype=torch.int64).reshape(-1)
     return Packed(fp=fp.contiguous(),
-                  ip=_iparams(working_months, retirement_years, seed,
-                              block_offset, device),
-                  n_streams=params.n_streams)
+                  ip=_iparams(months, retirement_years, seed, block_offset,
+                              device),
+                  n_streams=params.n_streams,
+                  months=tuple(int(v) for v in months.tolist()))
 
 
 def pack_grid(
@@ -476,6 +488,9 @@ class TilePlan(NamedTuple):
     months_per_chunk: int
     fields: int
     elem_bytes: int = 4
+    # The probe without a glide path (:func:`probe_plan`): accum_kernel runs
+    # every path's accumulation once and the rows start from its carry.
+    accum_once: bool = False
 
     @property
     def threads(self) -> int:
@@ -525,6 +540,24 @@ def tile_plan(rows: int, n_paths: int, statics: Statics, kind: str,
                     int(elem_bytes))
 
 
+def probe_plan(rows: int, n_paths: int, statics: Statics) -> TilePlan:
+    """The launch of :func:`probe`: :func:`tile_plan`'s "probe" tiling;
+    without a glide path (``accum_once``) ``accum_kernel`` runs each
+    path's working years once, to the rows' largest W, and each row starts
+    from its carry at its own W. A glide path moves each row's target with
+    its own W, so there every row accumulates its own months."""
+    return tile_plan(rows, n_paths, statics, "probe")._replace(
+        accum_once=not statics.glide)
+
+
+def carry_fields(statics: Statics) -> int:
+    """Values per path of the carry ``accum_kernel`` hands a probe row
+    (``csrc/month_loop.cu`` kCarryFields): b1, c1, b2, c2 and the price
+    level; with annual bills also both period gains and the failed-bill
+    flag."""
+    return 8 if statics.bill1 or statics.bill2 else 5
+
+
 def tile_work(plan: TilePlan, working_months, t_end,
               acc_cap: Optional[int] = None) -> Dict[str, int]:
     """The least work of one tiled launch whose paths live, counted as the
@@ -532,43 +565,85 @@ def tile_work(plan: TilePlan, working_months, t_end,
     the block's real paths, up to the largest t_end of its rows; ``accum``
     and ``retire`` charge each row's body once per (row, path, month) up to
     the row's own W (or the scan's ``acc_cap``, where lower) and t_end. A
-    warp whose paths are all ruined runs less (``ProbeOut.steps``)."""
+    warp whose paths are all ruined runs less (``ProbeOut.steps``). With
+    ``plan.accum_once`` the accumulation runs once per path, to the rows'
+    largest W, drawing those months itself, and each block draws from its
+    rows' smallest W + 1 on."""
     t = [int(v) for v in t_end]
     w_ret = [int(v) for v in working_months]
     w = w_ret if acc_cap is None else [min(v, int(acc_cap)) for v in w_ret]
     if len(w) != plan.rows or len(t) != plan.rows:
         raise ValueError("one W and one t_end per row")
-    C = plan.rows_per_block
-    draws = sum(plan.n_paths * max(t[g * C:(g + 1) * C])
-                for g in range(plan.grid[1]))
+    C, n = plan.rows_per_block, plan.n_paths
+    groups = [slice(g * C, (g + 1) * C) for g in range(plan.grid[1])]
+    if plan.accum_once:
+        accum = n * max(max(w), 0)
+        draws = accum + sum(n * (max(t[g]) - max(min(w_ret[g]), 0))
+                            for g in groups)
+    else:
+        accum = n * sum(max(v, 0) for v in w)
+        draws = sum(n * max(t[g]) for g in groups)
     return {
         "draws": draws,
-        "accum": plan.n_paths * sum(max(v, 0) for v in w),
-        "retire": plan.n_paths * sum(te - wi for wi, te in zip(w_ret, t)),
+        "accum": accum,
+        "retire": n * sum(te - wi for wi, te in zip(w_ret, t)),
     }
+
+
+def row_months(packed: Packed) -> Tuple[int, ...]:
+    """The rows' W: as :func:`pack_params` kept them on the host, else
+    read from the block's ``ip`` (a copy from the card there)."""
+    if packed.months is not None:
+        return packed.months
+    return tuple(int(v) for v in packed.ip[:, I_W].tolist())
+
+
+def accum_counts(plan: TilePlan, working_months) -> Dict[str, int]:
+    """A probe launch's accumulation path-months: ``accum_run``, what it
+    runs (``plan.accum_once``: n x the largest W; else n x the sum of the
+    rows' W), and ``accum_rows``, what per-row accumulation would run (n x
+    the sum of the rows' W)."""
+    w = [max(int(v), 0) for v in working_months]
+    rows = plan.n_paths * sum(w)
+    return {"accum_run": plan.n_paths * max(w) if plan.accum_once else rows,
+            "accum_rows": rows}
 
 
 def _launch_rows(entry: str, packed: Packed, statics: Statics,
                  n_paths: int, plan: TilePlan) -> ProbeOut:
-    """One launch of ``probe_kernel`` (``mcrt_probe``) or ``grid_kernel``
-    (``mcrt_grid``): K rows x ``n_paths`` paths as ``plan`` tiles them."""
+    """One launch of ``probe_kernel`` (``mcrt_probe``; with
+    ``plan.accum_once`` after ``accum_kernel``, on a carry buffer of (K,
+    :func:`carry_fields`, n) floats) or ``grid_kernel`` (``mcrt_grid``): K
+    rows x ``n_paths`` paths as ``plan`` tiles them."""
     from . import _build
 
     K, n = packed.ip.shape[0], int(n_paths)
     if (plan.rows, plan.n_paths) != (K, n):
         raise ValueError(f"{plan} does not tile {K} rows x {n} paths")
+    probe = entry == "mcrt_probe"
+    if probe and plan.accum_once == statics.glide:
+        raise ValueError(f"{plan} does not fit the probe kernel of these "
+                         "Statics: it accumulates " + (
+                             "per row" if statics.glide else "once per path"))
     lib = _build.load(statics)
     dev = packed.device
     success = torch.empty((K, n), dtype=torch.float32, device=dev)
     final = torch.empty((K, n), dtype=torch.float32, device=dev)
     # The probe under longevity writes its decided months after the steps.
-    decided = entry == "mcrt_probe" and statics.mortality
+    decided = probe and statics.mortality
     tally = torch.zeros((3 if decided else 2, K), dtype=torch.int32, device=dev)
+    shared = ()
+    if probe:
+        fields = carry_fields(statics) if plan.accum_once else 0
+        w_max = max(max(row_months(packed)), 0) if plan.accum_once else 0
+        carry = (torch.empty((K, fields, n), dtype=torch.float32, device=dev)
+                 if w_max else None)
+        shared = (fields, w_max, None if carry is None else carry.data_ptr())
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             packed.fp.data_ptr(), packed.ip.data_ptr(), K, n,
             packed.n_streams, plan.rows_per_block, plan.months_per_chunk,
-            plan.fields, plan.smem_bytes,
+            plan.fields, plan.smem_bytes, *shared,
             success.data_ptr(), final.data_ptr(), tally[0].data_ptr(),
             tally[1].data_ptr(), _stream_ptr(dev),
         )
@@ -605,19 +680,26 @@ def _plain_rows(packed: Packed, statics: Statics, retirement_years: int,
 # ---------------------------------------------------------------------------
 # probe: candidate-parallel success for the search
 # ---------------------------------------------------------------------------
-@profiling.traced("kernel.probe", _statics_attrs)
 def probe(packed: Packed, statics: Statics, retirement_years: int,
           n_paths: int) -> ProbeOut:
     """Per-candidate survivors over exactly ``n_paths`` paths (kernel on a
-    CUDA tensor, plain version on a CPU tensor)."""
-    if packed.fp.ndim != 1:
-        raise ValueError("probe takes one shared parameter block (pack_params)")
-    if _runs_plain(packed, statics, "probe"):
-        return probe_plain(packed, statics, retirement_years, n_paths)
-    plan = tile_plan(packed.ip.shape[0], n_paths, statics, "probe")
-    out = _launch_rows("mcrt_probe", packed, statics, n_paths, plan)
-    _count(LAUNCHES, "probe")
-    return out
+    CUDA tensor, plain version on a CPU tensor). A span ``kernel.probe``;
+    a kernel launch adds its :func:`accum_counts` to its attributes and to
+    ``BODY_STEPS["accum"]``."""
+    with profiling.span("kernel.probe", statics=statics_tag(statics)) as span:
+        if packed.fp.ndim != 1:
+            raise ValueError("probe takes one shared parameter block (pack_params)")
+        if _runs_plain(packed, statics, "probe"):
+            return probe_plain(packed, statics, retirement_years, n_paths)
+        plan = probe_plan(packed.ip.shape[0], n_paths, statics)
+        out = _launch_rows("mcrt_probe", packed, statics, n_paths, plan)
+        _count(LAUNCHES, "probe")
+        accum = accum_counts(plan, row_months(packed))
+        with _COUNT_LOCK:
+            BODY_STEPS["accum"][0] += accum["accum_run"]
+            BODY_STEPS["accum"][1] += accum["accum_rows"]
+        span.set(**accum)
+        return out
 
 
 def probe_plain(packed: Packed, statics: Statics, retirement_years: int,

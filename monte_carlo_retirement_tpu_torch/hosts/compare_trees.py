@@ -8,12 +8,16 @@ and their times.
 (its kernels build into ROOT's own build directory) and appends one JSON
 line to OUT.jsonl: at chip_smoke.py phase 6's shapes, for the 16-candidate
 probe at 1M x 600 under config.json's Statics and under
-``chip_smoke.ALL_ON``, one 16-row chunk of the 16 x 16 grid (W=231, R=50,
+``chip_smoke.ALL_ON``; at the search's shapes, config.json's own household
+(1M paths, R=50) probed at its two ladders, W = 12-192 and 204-384, and at
+a verify probe of 11 rows, W = 194-204, padded with 5 more at 204; one
+16-row chunk of the 16 x 16 grid (W=231, R=50,
 1M paths), ``simulate`` at 1M x 600 and the full kernel at 1M x 600, and
 the scan kernels at the same shapes in float32 and float64
 (``scan_rows_kernel``: the 16 rows at 1M x 600; ``scan_full_kernel``: 1M x
 600): the per-row survivor counts, the float64 sum of each row's final
-balances, a checksum of the bits of every output, and the CUDA-event time
+balances, a checksum of the bits of every output, the tiled launches'
+body steps per row, and the CUDA-event time
 (warm, min of 5); then the CUDA-event time of the plain versions of the probe, the
 grid chunk, ``simulate`` and the full run (and of the full run under
 ``ALL_ON``), min of 2. Run it once per checkout in turns (parent, change, change,
@@ -67,6 +71,12 @@ def run(root: str, label: str, out_path: str) -> int:
     probe = eng._pack(list(range(16)), "search")
     probe_on = eng_on._pack(list(range(16)), "search")
     full = eng._pack(0, "final")
+    house = Engine(cs._config(), device="cuda")
+    search_shapes = {
+        "probe_w12_192": list(range(12, 193, 12)),
+        "probe_w204_384": list(range(204, 385, 12)),
+        "probe_verify": list(range(194, 205)) + [204] * 5,
+    }
 
     cases = {
         "probe": lambda: ck.probe(probe, eng.statics, R, n),
@@ -75,6 +85,10 @@ def run(root: str, label: str, out_path: str) -> int:
         "simulate": lambda: ck.simulate(full, eng.statics, R, n),
         "full": lambda: ck.simulate_full(full, eng.statics, R, n, L),
     }
+    for name, months in search_shapes.items():
+        packed = house._pack(months, "search")
+        cases[name] = (lambda packed=packed: ck.probe(
+            packed, house.statics, house.retirement_years, n))
     kernel = importlib.import_module(f"{pkg}.engine.kernel")
     flags = cs._scan_flags(cs._config(**scen))
     t_probe, t_full = eng._t_scan(15), eng._t_scan(0)
@@ -106,6 +120,8 @@ def run(root: str, label: str, out_path: str) -> int:
                 "final_sum": final.double().sum(dim=1).tolist(),
                 "success_bits": _digest(success),
                 "final_bits": _digest(final),
+                "steps": (out.steps.tolist() if getattr(out, "steps", None)
+                          is not None else None),
             }
         res["ms"] = cs._time_ms(fn)
         line[name] = res

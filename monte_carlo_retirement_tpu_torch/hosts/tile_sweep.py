@@ -98,7 +98,8 @@ def main() -> int:
         engines["slice"].statics)
 
     def plans(K, st, kind):
-        base = ck.tile_plan(K, n, st, kind)
+        base = (ck.probe_plan(K, n, st) if kind == "probe"
+                else ck.tile_plan(K, n, st, kind))
         if K == 1:
             return [base._replace(months_per_chunk=m) for m in ONE_ROW_MONTHS]
         return [base._replace(rows_per_block=c, months_per_chunk=m)

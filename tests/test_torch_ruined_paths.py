@@ -182,7 +182,7 @@ def test_probe_brings_its_steps_back_with_the_survivors(recorder, backend):
                                     "steps_all": every}]
     ck.reset_counts()
     assert ck.BODY_STEPS == {"probe": [0, 0], "grid": [0, 0], "scan": [0, 0],
-                             "decided": [0, 0]}
+                             "decided": [0, 0], "accum": [0, 0]}
 
 
 def test_grid_brings_its_steps_back_in_its_table(recorder):

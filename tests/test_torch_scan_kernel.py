@@ -346,6 +346,7 @@ def test_scan_work_follows_from_its_shapes():
     months = list(range(16))
     t_end = [w + 12 * R for w in months]
     plan = ck.tile_plan(16, n, SLICE, "probe", elem_bytes=8)
+    assert not plan.accum_once  # the scan's rows accumulate per row
     cap = 660 - 12 * R  # t_scan 660
     work = ck.tile_work(plan, months, t_end, acc_cap=cap)
     assert work == {"draws": n * max(t_end), "accum": n * sum(months),

@@ -116,6 +116,13 @@ def test_tile_work_counts_draws_per_block_and_body_per_row(K, n):
     assert work["draws"] == int(t_max[pairs // n].sum())
     assert work["accum"] == int(w[rows].sum())
     assert work["retire"] == int((t_end - w)[rows].sum())
+    # A probe under a glide path accumulates per row too; without one it
+    # accumulates once per path, to the rows' largest W.
+    glide = SLICE._replace(glide=True)
+    assert ck.tile_work(ck.probe_plan(K, n, glide), w, t_end) == work
+    shared = ck.tile_work(ck.probe_plan(K, n, SLICE), w, t_end)
+    assert shared["accum"] == n * int(w.max()) <= work["accum"]
+    assert shared["retire"] == work["retire"]
 
 
 def test_tile_work_shares_draws_across_the_rows_of_a_block():
@@ -129,6 +136,38 @@ def test_tile_work_shares_draws_across_the_rows_of_a_block():
     assert one["retire"] == 16 * n * 600
     two = ck.tile_work(ck.tile_plan(17, n, SLICE, "probe"), w, t_end)
     assert two["draws"] == n * (608 + 616)
+    # The probe's own plan: the accumulation pass draws months 1..15 (1..16)
+    # once per path; a block draws from its rows' smallest W + 1 (blocks of
+    # 9 and 8 rows: W 0-8 and 9-16).
+    one = ck.tile_work(ck.probe_plan(16, n, SLICE), w[:16], t_end[:16])
+    assert one["draws"] == n * (15 + 615) and one["accum"] == n * 15
+    two = ck.tile_work(ck.probe_plan(17, n, SLICE), w, t_end)
+    assert two["draws"] == n * (16 + 608 + 616 - 9)
+
+
+@pytest.mark.parametrize("K,n", [(1, 4_097), (3, 1_000), (11, 4_097),
+                                 (16, 1_000), (17, 4_097)])
+def test_tile_work_counts_shared_accumulation_once_per_path(K, n):
+    """The probe without a glide path: the accumulation pass draws and
+    runs months 1..max W once per path; each block draws from its rows'
+    smallest W + 1 to their largest t_end; retirement as per row."""
+    rng = np.random.default_rng(K * n + 1)
+    w = rng.integers(0, 481, size=K)
+    t_end = w + 12 * rng.integers(1, 51, size=K)
+    plan = ck.probe_plan(K, n, SLICE)
+    work = ck.tile_work(plan, w, t_end)
+    row, path, block = _cells(plan)
+    real = (row < K) & (path < n)
+    block, path, rows = block[real], path[real], row[real]
+    t_max = np.zeros(block.max() + 1, dtype=np.int64)
+    np.maximum.at(t_max, block, t_end[rows])
+    w_lo = np.full(block.max() + 1, 10**9, dtype=np.int64)
+    np.minimum.at(w_lo, block, w[rows])
+    pairs = np.unique(block.astype(np.int64) * n + path)
+    assert work["accum"] == n * int(w.max())
+    assert work["draws"] == n * int(w.max()) + int(
+        (t_max - w_lo)[pairs // n].sum())
+    assert work["retire"] == int((t_end - w)[rows].sum())
 
 
 def test_launch_checks_its_plan_before_building():
